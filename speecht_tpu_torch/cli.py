@@ -1,13 +1,14 @@
-"""Command line of the port: ``python -m speecht_tpu_torch evaluate ...``.
+"""Command line of the port: ``python -m speecht_tpu_torch {train,evaluate} ...``.
 
-Counterpart of ``speecht_tpu/cli.py``. The ``evaluate`` subcommand has the
-JAX package's base and evaluate flags, with the same names and defaults,
-plus ``--device {cuda,cpu}`` (default ``cuda``; without a card it raises).
-Paths of the JAX package that the port does not have yet
-(``--language-model``, ``--from-audio``, ``--seq-parallel``,
-``--data-parallel``/``--model-parallel`` above 1) raise an error that says
-so; none is ignored. The other subcommands come with later parts of the
-port.
+Counterpart of ``speecht_tpu/cli.py``. The ``train`` and ``evaluate``
+subcommands have the JAX package's base and per-command flags, with the
+same names and defaults, plus ``--device {cuda,cpu}`` (default ``cuda``;
+without a card it raises). Paths of the JAX package that the port does
+not have yet raise an error that names the flag; none is ignored:
+``train --spec-augment``, ``--profile-steps``, ``--verbose-summaries``,
+``evaluate --language-model``, ``--from-audio``, and on both
+``--seq-parallel`` or ``--data-parallel``/``--model-parallel`` above 1.
+The other subcommands come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class CLI:
             help="sub-command help", dest="command"
         )
         self.base_parser = self._create_base_parser()
+        self._add_training_parser()
         self._add_evaluation_parser()
         self._parsed = None
 
@@ -122,6 +124,66 @@ class CLI:
             "--rescore", dest="rescore_n", type=int, default=0,
         )
 
+    def _add_training_parser(self):
+        p = self.subparsers.add_parser(
+            "train", help="Train the wav2letter weights.",
+            parents=[self.base_parser],
+        )
+        p.add_argument("--learning-rate", dest="learning_rate", type=float, default=1e-4)
+        p.add_argument(
+            "--reset-learning-rate", dest="reset_learning_rate",
+            action="store_true",
+        )
+        p.add_argument(
+            "--learning-rate-decay-factor", dest="learning_rate_decay_factor",
+            type=float, default=0,
+        )
+        p.add_argument("--momentum", dest="momentum", type=float, default=0.9)
+        p.add_argument(
+            "--max-gradient-norm", dest="max_gradient_norm", type=float, default=5.0
+        )
+        p.add_argument(
+            "--limit-training-set", dest="limit_training_set", type=int, default=0
+        )
+        p.add_argument(
+            "--steps-per-checkpoint", dest="steps_per_checkpoint", type=int,
+            default=1000,
+        )
+        p.add_argument(
+            "--max-steps", dest="max_steps", type=int, default=None,
+            help="Exit cleanly (checkpoint saved) after this many steps "
+            "counted from this launch; default: run forever.",
+        )
+        p.add_argument(
+            "--spec-augment", dest="spec_augment", action="store_true",
+            help="On-device SpecAugment (not ported yet).",
+        )
+        p.add_argument(
+            "--spec-augment-freq-width", dest="spec_augment_freq_width",
+            type=int, default=None,
+        )
+        p.add_argument(
+            "--spec-augment-time-frac", dest="spec_augment_time_frac",
+            type=float, default=0.05,
+        )
+        p.add_argument(
+            "--grad-accum", dest="grad_accum", type=int, default=1,
+            help="Micro-batches accumulated per optimizer update.",
+        )
+        p.add_argument(
+            "--profile-steps", dest="profile_steps", type=str, default=None,
+            help="Profiler trace over steps START:STOP (not ported yet).",
+        )
+        p.add_argument(
+            "--verbose-summaries", dest="verbose_summaries",
+            action="store_true",
+            help="Images and activation histograms (not ported yet).",
+        )
+        p.add_argument(
+            "--seq-parallel", dest="seq_parallel", type=int, default=0,
+            help="Time-sharded conv stack (not ported yet).",
+        )
+
     def _add_evaluation_parser(self):
         p = self.subparsers.add_parser(
             "evaluate", help="Evaluate the development or test set.",
@@ -155,8 +217,10 @@ class CLI:
     def parsed(self):
         if self._parsed is None:
             parsed = self.parser.parse_args(self.argv)
-            if parsed.command == "evaluate":
-                parsed.run_type = parsed.dataset
+            if parsed.command:
+                parsed.run_type = (
+                    "train" if parsed.command == "train" else parsed.dataset
+                )
                 parsed.run_train_dir = parsed.train_dir + "/" + parsed.run_name
             self._parsed = parsed
         return self._parsed
@@ -164,10 +228,18 @@ class CLI:
     def _check_ported(self):
         flags = self.parsed
         unported = []
-        if flags.language_model:
-            unported.append("--language-model")
-        if flags.from_audio:
-            unported.append("--from-audio")
+        if flags.command == "train":
+            if flags.spec_augment:
+                unported.append("--spec-augment")
+            if flags.profile_steps:
+                unported.append("--profile-steps")
+            if flags.verbose_summaries:
+                unported.append("--verbose-summaries")
+        else:
+            if flags.language_model:
+                unported.append("--language-model")
+            if flags.from_audio:
+                unported.append("--from-audio")
         if flags.seq_parallel > 1:
             unported.append("--seq-parallel")
         if flags.data_parallel > 1 or flags.model_parallel > 1:
@@ -193,6 +265,10 @@ class CLI:
             return None
         self._check_ported()
         self._ensure_directories()
+        if self.parsed.command == "train":
+            from speecht_tpu_torch.training import Training
+
+            return Training(self.parsed).run()
         from speecht_tpu_torch.evaluation import Evaluation
 
         return Evaluation(self.parsed).run()

@@ -10,7 +10,9 @@ Counterpart of ``speecht_tpu/data/pipeline.py`` (single process):
 - :class:`PrefetchLoader` builds batches on a host thread. Features are
   cast to the transfer dtype (bf16 by default), placed in pinned memory
   and copied to the card with ``non_blocking`` copies on a side stream,
-  so the copy of batch N+1 overlaps the compute of batch N.
+  so the copy of batch N+1 overlaps the compute of batch N. It counts
+  its stalls (the consumer waiting on an empty queue) for the training
+  loop's ``prefetch_stalls`` scalars.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from typing import Callable, Iterator
 
 import numpy as np
@@ -180,6 +183,11 @@ class PrefetchLoader:
     (an event) before the batch is handed out, and the tensors are
     recorded on the consumer's stream so the allocator does not reuse
     them early.
+
+    ``stall_count``/``stall_seconds`` add up, over the loader's lifetime,
+    the waits of more than 2 ms for a batch, the first batch of each pass
+    excepted (the producer cannot be ahead yet), as the JAX package's
+    loader counts them.
     """
 
     _SENTINEL = object()
@@ -202,6 +210,8 @@ class PrefetchLoader:
         self._max_steps = max_steps
         self._group_by_length = group_by_length
         self._transfer_dtype = transfer_dtype
+        self.stall_count = 0
+        self.stall_seconds = 0.0
 
     def _worker(self, out_queue: queue.Queue, stop: threading.Event, errors):
         cuda = self._device.type == "cuda"
@@ -235,9 +245,19 @@ class PrefetchLoader:
             target=self._worker, args=(out_queue, stop, errors), daemon=True
         )
         thread.start()
+        first = True
         try:
             while True:
-                item = out_queue.get()
+                try:
+                    item = out_queue.get_nowait()
+                except queue.Empty:
+                    t0 = time.perf_counter()
+                    item = out_queue.get()
+                    waited = time.perf_counter() - t0
+                    if waited > 0.002 and item is not self._SENTINEL and not first:
+                        self.stall_count += 1
+                        self.stall_seconds += waited
+                first = False
                 if item is self._SENTINEL:
                     if errors:
                         raise errors[0]

@@ -10,8 +10,11 @@ global statistics. Unless ``--no-save``, ``eval_loss`` of the first batch
 goes to a TensorBoard event file.
 
 Weights come from ``--reference-weights`` (a ``.npy`` directory, see
-``weights.py``). The port has no checkpoints of its own yet, so without
-that flag the run stops with the JAX package's missing-checkpoint error.
+``weights.py``) or else from the latest of the port's own checkpoints in
+``<train-dir>/<run-name>`` (``train/checkpoint.py``; parameters only).
+Without either the run stops with the JAX package's missing-checkpoint
+error; a directory that holds only the JAX package's orbax checkpoints
+is refused (``speecht-cli export --weights`` is the bridge).
 """
 
 from __future__ import annotations
@@ -71,14 +74,16 @@ class Evaluation(DatasetExecutor):
         """Returns batch -> (loss, decoded_rows, decoded_lengths)."""
         return tstep.make_eval_step(self.model)
 
-    def load_weights(self) -> None:
+    def load_weights(self) -> int:
+        """Loads the weights; returns the optimizer step they were saved
+        at (0 for reference weights), the step of the ``eval_loss`` scalar."""
         ref_weights = getattr(self.flags, "reference_weights", None)
-        if not ref_weights:
-            raise FileNotFoundError(
-                "No checkpoint for evaluation found in "
-                f"{os.path.abspath(self.flags.run_train_dir)}"
-            )
-        self.model.load_state_dict(load_weight_dir(ref_weights, self.model))
+        if ref_weights:
+            self.model.load_state_dict(load_weight_dir(ref_weights, self.model))
+            return 0
+        return self.checkpoint_manager().restore_params(
+            dict(self.model.named_parameters())
+        )
 
     def _result_iterator(self, eval_step, loader):
         """Yields (host batch, loss, decoded, lengths) as numpy, pipelined.
@@ -98,8 +103,8 @@ class Evaluation(DatasetExecutor):
 
     def run(self) -> EvalStatistics:
         flags = self.flags
-        self.load_weights()
         self.model.to(self.device).eval()
+        weights_step = self.load_weights()
         eval_step = self.make_decoder()
 
         writer = None
@@ -119,9 +124,7 @@ class Evaluation(DatasetExecutor):
                 )
             )
             if writer is not None and step == 0:
-                # no training state yet: step 0, as the JAX package
-                # writes for reference weights
-                writer.add_scalars(0, {"eval_loss": float(avg_loss)})
+                writer.add_scalars(weights_step, {"eval_loss": float(avg_loss)})
 
         self.print_global_statistics(stats)
         if writer is not None:

@@ -1,8 +1,9 @@
 """Executor scaffolding shared by the commands.
 
 Counterpart of ``speecht_tpu/execution.py``: model construction from the
-flags, the corpus reader, the input-size probe (width of the first cached
-sample) and the batch loader wired to a per-command sample generator.
+flags, the fresh train state (``init_state``), the corpus reader, the
+input-size probe (width of the first cached sample), the batch loader
+wired to a per-command sample generator and the run's checkpoint manager.
 There is no mesh: the port runs on one device, named by ``--device``.
 """
 
@@ -17,6 +18,13 @@ from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.data.pipeline import PrefetchLoader
 from speecht_tpu_torch.data.reader import SpeechCorpusReader
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
+from speecht_tpu_torch.train.checkpoint import CheckpointManager
+from speecht_tpu_torch.train.state import (
+    ClipAdam,
+    TrainState,
+    create_train_state,
+    make_optimizer,
+)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -44,6 +52,27 @@ def build_model(input_size: int, flags, seed: int = 0) -> Wav2Letter:
         compute_dtype=getattr(flags, "compute_dtype", "bfloat16"),
     )
     return Wav2Letter(cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def init_state(
+    model: Wav2Letter, flags, generator: torch.Generator | None = None
+) -> tuple[TrainState, ClipAdam]:
+    """Fresh TrainState over ``model``'s parameters, reference optimizer
+    settings. The parameters are drawn anew from ``generator`` (a CPU
+    generator seeded with 0 by default) and keep the model's device."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    device = next(model.parameters()).device
+    for name in model.layer_names:
+        layer = getattr(model, name)
+        layer.to("cpu").reset_parameters(generator)
+        layer.to(device)
+    tx = make_optimizer(
+        max_gradient_norm=getattr(flags, "max_gradient_norm", 5.0),
+        epsilon=getattr(flags, "epsilon", 1e-3),
+    )
+    lr = getattr(flags, "learning_rate", 1e-4)
+    return create_train_state(dict(model.named_parameters()), tx, lr), tx
 
 
 class DatasetExecutor(abc.ABC):
@@ -92,6 +121,9 @@ class DatasetExecutor(abc.ABC):
             group_by_length=getattr(self.flags, "group_by_length", False),
             transfer_dtype=getattr(self.flags, "transfer_dtype", "bfloat16"),
         )
+
+    def checkpoint_manager(self) -> CheckpointManager:
+        return CheckpointManager(self.flags.run_train_dir)
 
     @abc.abstractmethod
     def run(self):

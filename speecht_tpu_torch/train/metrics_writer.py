@@ -1,14 +1,16 @@
-"""TensorBoard-compatible scalar metrics writer (pure Python, no TF).
+"""TensorBoard-compatible metrics writer (pure Python, no TF).
 
-Copy of the scalar part of ``speecht_tpu/train/metrics_writer.py``: the
-TFRecord event-file format
+Copy of the scalar and raw-histogram part of
+``speecht_tpu/train/metrics_writer.py``: the TFRecord event-file format
 
   record  := uint64 length | uint32 masked_crc32c(length) | payload
              | uint32 masked_crc32c(payload)
   payload := tensorflow.Event protobuf (hand-encoded wire format)
 
-so ``evaluate`` writes ``eval_loss`` to ``log/<run>_<type>`` as the JAX
-package does. Histogram and image summaries arrive with training.
+so ``evaluate`` writes ``eval_loss`` and ``train`` its scalars and
+parameter histograms (from device-reduced stats, ``train/summaries.py``)
+to ``log/<run>_<type>`` as the JAX package does. Image summaries are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -73,11 +75,34 @@ def _field_bytes(num: int, value: bytes) -> bytes:
     return bytes([num << 3 | 2]) + _varint(len(value)) + value
 
 
+def _packed_doubles(num: int, values) -> bytes:
+    payload = b"".join(struct.pack("<d", float(v)) for v in values)
+    return bytes([num << 3 | 2]) + _varint(len(payload)) + payload
+
+
+def _histogram_proto_from_stats(
+    mn, mx, num, total, sum_squares, bucket_limits, buckets
+) -> bytes:
+    """tensorflow.HistogramProto wire encoding from precomputed stats.
+
+    Fields: 1=min 2=max 3=num 4=sum 5=sum_squares 6=bucket_limit[] 7=bucket[]
+    """
+    msg = _field_double(1, float(mn))
+    msg += _field_double(2, float(mx))
+    msg += _field_double(3, float(num))
+    msg += _field_double(4, float(total))
+    msg += _field_double(5, float(sum_squares))
+    msg += _packed_doubles(6, bucket_limits)
+    msg += _packed_doubles(7, buckets)
+    return msg
+
+
 def _event(
     wall_time: float,
     step: int = 0,
     file_version: str | None = None,
     scalars: dict[str, float] | None = None,
+    raw_histograms: dict[str, dict] | None = None,
 ) -> bytes:
     # tensorflow.Event: 1=wall_time, 2=step, 3=file_version, 5=summary
     msg = _field_double(1, wall_time)
@@ -90,6 +115,13 @@ def _event(
         # Summary.Value: 1=tag, 2=simple_value
         val = _field_bytes(1, tag.encode()) + _field_float(2, float(value))
         summary += _field_bytes(1, val)
+    for tag, st in (raw_histograms or {}).items():
+        # Summary.Value: 1=tag, 5=histo
+        histo = _histogram_proto_from_stats(
+            st["min"], st["max"], st["num"], st["sum"], st["sum_squares"],
+            st["bucket_limits"], st["buckets"],
+        )
+        summary += _field_bytes(1, _field_bytes(1, tag.encode()) + _field_bytes(5, histo))
     if summary:
         msg += _field_bytes(5, summary)
     return msg
@@ -116,6 +148,14 @@ class SummaryWriter:
 
     def add_scalars(self, step: int, scalars: dict[str, float]):
         self._write_record(_event(time.time(), step=step, scalars=scalars))
+
+    def add_raw_histograms(self, step: int, stats: dict):
+        """Histogram summaries from device-reduced stats: per tag a dict of
+        min/max/num/sum/sum_squares/bucket_limits/buckets."""
+        self._write_record(_event(time.time(), step=step, raw_histograms=stats))
+
+    def flush(self):
+        self._f.flush()
 
     def close(self):
         self._f.close()

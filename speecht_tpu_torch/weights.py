@@ -11,6 +11,10 @@
   package's ``export --weights`` (``conv_i/kernel.npy``, ``bias.npy``).
   A model trained by the JAX package reaches the port through
   ``speecht-cli export --weights <dir>``.
+- :func:`train_state_from_jax` turns a JAX train state given as numpy
+  (params, optax Adam ``mu``/``nu`` and ``count``, ``step``, learning
+  rate) into the port's :class:`TrainState`, so the tests can start both
+  packages from the same point, mid-training included.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import re
 
 import numpy as np
 import torch
+
+from speecht_tpu_torch.train.state import AdamState, TrainState
 
 _REFERENCE_NAME = re.compile(r"convolution_layer_(\d+)/(filters|bias)(:0)?$")
 _JAX_NAME = re.compile(r"conv_(\d+)/(kernel|bias)$")
@@ -103,3 +109,56 @@ def load_weight_dir(directory: str, model: torch.nn.Module) -> dict:
                 f"weights {tuple(state[name].shape)} (as [O, I, W])"
             )
     return {name: state[name] for name in expected}
+
+
+def copy_into(targets: dict[str, torch.Tensor], values: dict, what: str):
+    """Copies ``values`` into the same-named, same-shaped ``targets`` in
+    place; raises KeyError when the names differ, ValueError on a shape."""
+    if set(values) != set(targets):
+        raise KeyError(
+            f"{what}: names differ from the model's "
+            f"({sorted(set(values) ^ set(targets))[:4]})"
+        )
+    with torch.no_grad():
+        for name, t in targets.items():
+            if tuple(values[name].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{what}: shape of {name} is {tuple(values[name].shape)}, "
+                    f"the model's {tuple(t.shape)}"
+                )
+            t.copy_(values[name])
+
+
+def train_state_from_jax(
+    state: TrainState,
+    params: dict,
+    mu: dict,
+    nu: dict,
+    count,
+    step,
+    learning_rate,
+) -> TrainState:
+    """Loads a JAX train state, given as numpy, into ``state`` in place.
+
+    ``params``, ``mu`` and ``nu`` are flax trees ``{conv_i: {kernel [W,I,O],
+    bias [O]}}`` (``state.params``, ``state.opt_state[1].mu`` / ``.nu`` of
+    the JAX package's clip -> Adam chain); ``count`` is that Adam state's
+    count. ``state`` keeps its tensors (the model's parameters among
+    them) and device. Returns ``state``.
+    """
+    copy_into(state.params, params_from_jax(params), "params")
+    copy_into(state.opt_state.mu, params_from_jax(mu), "mu")
+    copy_into(state.opt_state.nu, params_from_jax(nu), "nu")
+    opt = state.opt_state
+    device = opt.count.device
+    return TrainState(
+        params=state.params,
+        opt_state=AdamState(
+            mu=opt.mu, nu=opt.nu,
+            count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
+        ),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        learning_rate=torch.tensor(
+            float(np.asarray(learning_rate)), dtype=torch.float32, device=device
+        ),
+    )

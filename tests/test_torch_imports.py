@@ -66,3 +66,16 @@ def test_importing_the_package_loads_no_jax():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_module_of_the_train_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.training",
+        "speecht_tpu_torch.train.state",
+        "speecht_tpu_torch.train.step",
+        "speecht_tpu_torch.train.checkpoint",
+        "speecht_tpu_torch.train.summaries",
+        "speecht_tpu_torch.ops.ctc_cuda",
+    ):
+        assert m in mods
