@@ -26,6 +26,12 @@ drives the port's main path through its normal entry point, and fails
    (see ``f64_witness``); times beside the plain version, the
    bound and ``F.ctc_loss`` (its backward alone, and forward+backward
    against alpha+beta).
+2c. The conv0 kernel against ``conv0_plain`` on the card:
+   the main shape (B=64, T=1024, I=128, O=250) in bf16 and float32, the
+   largest bucket (B=8, T=4352) and edge shapes (T=48, T=50, B=1, O=29,
+   I=64), with time, plain time, the ``F.conv1d`` + bias + ReLU yardstick
+   and the bound; ``Conv0Function``'s gradients against autograd through
+   ``conv0_plain``.
 3. The evaluate path: ``CLI(["evaluate", ...]).run()`` on a synthetic
    cached corpus (256 utterances of 600-1024 frames) with full-width
    random weights (128/250/2000/29, 11 layers) written as a
@@ -35,19 +41,28 @@ drives the port's main path through its normal entry point, and fails
    step 0, then ``CLI(["train", "--max-steps", "8",
    "--steps-per-checkpoint", "4", "--batch-size", "64", ...]).run()`` on
    a synthetic cached train split (128 utterances of 600-1024 frames),
-   launch counts reset just before and read just after (both kernels
-   must run), finite losses, a checkpoint at step 8, then ``evaluate``
-   without ``--reference-weights`` restoring it; ms per step, the train
-   step's device time on one resident batch and its share of the card's
-   dense bf16 peak, where that time goes (stages and each layer's
-   backward by CUDA events, kernels by torch.profiler, and the step with
-   ``cudnn.benchmark`` on for comparison); the F.conv1d time of conv_0
-   (the layer of the TPU kernel conv0_pallas, not ported yet) beside its
-   bound.
+   launch counts reset just before and read just after (both CTC kernels
+   must run, conv0 must not: phases 3 and 3b run without
+   SPEECHT_PALLAS_CONV0), finite losses, a checkpoint at step 8, then
+   ``evaluate`` without ``--reference-weights`` restoring it; ms per
+   step, the train step's device time on one resident batch and its
+   share of the card's dense bf16 peak, where that time goes (stages and
+   each layer's backward by CUDA events, kernels by torch.profiler, and
+   the step with ``cudnn.benchmark`` on for comparison).
+3c. The conv0 path, with SPEECHT_PALLAS_CONV0=1 for this phase only:
+   ``train --spec-augment --verbose-summaries --profile-steps 2:4`` (8
+   steps from the phase-3 weights), then ``evaluate`` restoring step 8;
+   conv0 launches equal the forwards (train steps, activation-summary
+   forwards, evaluate batches), the CTC kernels run, losses finite, image
+   and activation summaries in the event file, a profiler trace; ms per
+   step and per batch beside the default path's, and the device step
+   times of both paths in turns.
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
    B=8, same weights and batch: loss, grad norm and updated parameters.
+4c. Phase 4 with SPEECHT_PALLAS_CONV0=1: the conv0 kernel (float32) on
+   the card against ``conv0_plain`` on the CPU.
 5. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -61,6 +76,7 @@ import io
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -136,6 +152,13 @@ PARITY_PARAM_ATOL = 1e-6
 # computed: 25.3 GFLOP per utterance); a train step is about 3 forwards
 PEAK_BF16_OPS_PER_S = 989e12
 FORWARD_FLOP_PER_UTT = 25.3e9
+
+# conv0 kernel vs conv0_plain. float32: 6400 products a sum (25 taps x
+# 2I), summed in another order; outputs of order 1. bfloat16: see
+# check_conv0. Gradients (float32, TF32 off): the transpose convs (cuDNN)
+# against autograd through the 25 matmuls, sums of up to 512 products.
+CONV0_F32_RTOL, CONV0_F32_ATOL = 1e-5, 1e-4
+CONV0_GRAD_RTOL, CONV0_GRAD_ATOL = 1e-4, 1e-4
 
 MAIN_BATCH, MAIN_STEPS = 64, 4
 TRAIN_STEPS, TRAIN_INTERVAL, TRAIN_UTTERANCES = 8, 4, 128
@@ -449,6 +472,137 @@ def check_beta(name, inputs, g, device, time_it=True):
     return result
 
 
+# -- phase 2c: the conv0 kernel against its plain version -------------------
+
+
+def bf16_spacing(t):
+    """The gap between neighbouring bfloat16 values at |t| (8 significant
+    bits: 2^(e - 8) for |t| = m 2^e, m in [0.5, 1)); 0 at t = 0."""
+    m, e = torch.frexp(t.abs().float())
+    return torch.ldexp((m > 0).float(), e - 8)
+
+
+def conv0_inputs(seed, B, T, I, O, dtype, device):
+    """Features, a glorot-uniform [O, I, 48] weight and a bias, from a seed."""
+    rng = np.random.RandomState(seed)
+    limit = math.sqrt(6.0 / (48 * I + 48 * O))
+    x = rng.randn(B, T, I).astype(np.float32)
+    w = rng.uniform(-limit, limit, size=(O, I, 48)).astype(np.float32)
+    b = rng.uniform(-0.05, 0.05, size=O).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype) for a in (x, w, b))
+
+
+def conv0_bound_ms(B, T, I, O, dtype):
+    """Least time: x, weight, bias and y moved once; 2 B (T/2) O 48 I
+    operations (the 48 real taps) at the dense bf16 tensor-core rate, or
+    the float32 rate outside the tensor cores (no TF32)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * (B * T * I + O * I * 48 + O + B * (T // 2) * O)
+    ops = 2 * B * (T // 2) * O * 48 * I
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_conv0(name, B, T, I, O, dtype, device, time_it=True, seed=0):
+    """The kernel ([B, O, T/2]) against conv0_plain ([B, T/2, O]) on the
+    same inputs. bfloat16: both sum exact products in float32 and round
+    once, in another order, so they may differ by one bf16 spacing of the
+    output, plus CONV0_F32_ATOL where a sum near 0 has another sign (ReLU).
+    float32: the same products summed in another order."""
+    from speecht_tpu_torch.ops import conv0, conv0_cuda
+
+    x, w, b = conv0_inputs(seed, B, T, I, O, dtype, device)
+
+    def run_kernel():
+        return conv0_cuda.CONV0(x, w, b)
+
+    def run_plain():
+        return conv0.conv0_plain(x, w, b)
+
+    got = run_kernel().transpose(1, 2).float()
+    want = run_plain().float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if dtype == torch.bfloat16:
+        tol = bf16_spacing(torch.maximum(got.abs(), want.abs())) + CONV0_F32_ATOL
+        tol_text = "one bf16 spacing of the output + %g" % CONV0_F32_ATOL
+    else:
+        tol = CONV0_F32_ATOL + CONV0_F32_RTOL * want.abs()
+        tol_text = f"atol {CONV0_F32_ATOL} + rtol {CONV0_F32_RTOL}"
+    share = float((err / tol).max())
+    ok = share <= 1.0 and bool(torch.isfinite(got).all())
+    result = {
+        "shape": f"B={B} T={T} I={I} O={O} {str(dtype).split('.')[-1]}",
+        "max_abs_err": float(err.max()),
+        "unequal_share": float((err > 0).float().mean()),
+        "ok": ok,
+    }
+    print(
+        f"conv0 {name} [{result['shape']}]: max abs err {result['max_abs_err']!r}, "
+        f"{result['unequal_share']:.4%} of entries differ, {share!r} of the "
+        f"tolerance ({tol_text}): " + ("ok" if ok else "DISAGREES")
+    )
+    check(ok, f"conv0 {name} disagrees with the plain version")
+    if not time_it:
+        return result
+
+    ms = time_ms(run_kernel, iters=50, warmup=3)
+    plain_ms = time_ms(run_plain, iters=5)
+    xt = x.transpose(1, 2)
+
+    def run_library():
+        return torch.relu(torch.nn.functional.conv1d(xt, w, b, stride=2, padding=23))
+
+    library_ms = time_ms(run_library, iters=50, warmup=3)
+    lib_err = float((run_library().transpose(1, 2).float() - want).abs().max())
+    bound_ms, bound_by = conv0_bound_ms(B, T, I, O, dtype)
+    print(
+        f"conv0 {name}: kernel {ms!r} ms ({bound_ms / ms:.1%} of the bound), "
+        f"plain {plain_ms!r} ms, F.conv1d + bias + ReLU {library_ms!r} ms "
+        f"(agrees within {lib_err!r}), bound {bound_ms!r} ms ({bound_by})"
+    )
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def check_conv0_grads(device):
+    """Conv0Function's (x, w, b) gradients on the card against autograd
+    through conv0_plain, float32 with TF32 off, a random cotangent. The
+    two ReLU masks must agree entry by entry (a pre-activation within
+    rounding of 0 would flip one; the shape keeps that unlikely)."""
+    from speecht_tpu_torch.ops import conv0, conv0_cuda
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x, w, b = conv0_inputs(5, 2, 256, 128, 64, torch.float32, device)
+        g = torch.from_numpy(
+            np.random.RandomState(6).randn(2, 128, 64).astype(np.float32)
+        ).to(device)
+        grads = {}
+        for side, fn in (("Function", conv0_cuda.conv0), ("plain", conv0.conv0_plain)):
+            args = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            y = fn(*args)
+            grads[side] = (y.detach(), torch.autograd.grad(y, args, g))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (yf, gf), (yp, gp) = grads["Function"], grads["plain"]
+    flips = int(((yf > 0) != (yp > 0)).sum())
+    errs = {}
+    ok = flips == 0
+    for name, a, c in zip(("dx", "dw", "db"), gf, gp):
+        errs[name] = float((a - c).abs().max())
+        ok = ok and bool(torch.allclose(a, c, rtol=CONV0_GRAD_RTOL, atol=CONV0_GRAD_ATOL))
+    print(f"conv0 gradients (Function vs autograd through conv0_plain, float32, "
+          f"B=2 T=256 I=128 O=64): max abs err {errs}, ReLU masks differ at "
+          f"{flips} entries (tolerance rtol {CONV0_GRAD_RTOL} atol "
+          f"{CONV0_GRAD_ATOL}): " + ("ok" if ok else "DISAGREES"))
+    check(ok, "conv0 gradients disagree")
+
+
 # -- phase 3: the main path -----------------------------------------------
 
 
@@ -495,6 +649,61 @@ def run_cli(argv):
     return stats, buf.getvalue()
 
 
+@contextlib.contextmanager
+def batch_marks():
+    """Host times at which evaluate starts each batch's metrics, i.e. after
+    its results reached the host."""
+    from speecht_tpu_torch import evaluation
+
+    marks = []
+    track = evaluation.Evaluation._track_batch
+
+    def timed_track(*args, **kwargs):
+        marks.append(time.perf_counter())
+        return track(*args, **kwargs)
+
+    evaluation.Evaluation._track_batch = staticmethod(timed_track)
+    try:
+        yield marks
+    finally:
+        evaluation.Evaluation._track_batch = staticmethod(track)
+
+
+def batch_period_ms(marks):
+    """Steady-state batch period. The last interval is left out: no batch
+    is loaded or launched behind the last one."""
+    return (marks[-2] - marks[0]) / (len(marks) - 2) * 1e3
+
+
+@contextlib.contextmanager
+def step_marks():
+    """Host times of each train step's call."""
+    from speecht_tpu_torch.train import step as tstep
+
+    marks = []
+    make = tstep.make_train_step_acc
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a):
+            marks.append(time.perf_counter())
+            return step(*a)
+
+        return timed
+
+    tstep.make_train_step_acc = timed_make
+    try:
+        yield marks
+    finally:
+        tstep.make_train_step_acc = make
+
+
+def step_period_ms(marks):
+    """Steady-state step period over step calls 2 to the last."""
+    return (marks[-1] - marks[1]) / (len(marks) - 2) * 1e3
+
+
 def main_path(work, kernels, card):
     from speecht_tpu_torch.data.features import feature_size
     from speecht_tpu_torch.models.wav2letter import Wav2LetterConfig
@@ -516,20 +725,7 @@ def main_path(work, kernels, card):
     # warm-up run (CUDA context, cuDNN plans, first allocations)
     run_cli(argv + ["--step-count", "1"])
 
-    # steady-state batch period: when each batch's metrics start, i.e.
-    # after its results reached the host. The last interval is left out:
-    # no batch is loaded or launched behind the last one.
-    from speecht_tpu_torch import evaluation
-
-    marks = []
-    track = evaluation.Evaluation._track_batch
-
-    def timed_track(*args, **kwargs):
-        marks.append(time.perf_counter())
-        return track(*args, **kwargs)
-
-    evaluation.Evaluation._track_batch = staticmethod(timed_track)
-    try:
+    with batch_marks() as marks:
         for k in kernels:
             k.launches = 0
         torch.cuda.synchronize()
@@ -537,8 +733,6 @@ def main_path(work, kernels, card):
         stats, out = run_cli(argv + ["--step-count", str(MAIN_STEPS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        evaluation.Evaluation._track_batch = staticmethod(track)
     launches = {k.name: k.launches for k in kernels}
 
     lines = out.splitlines()
@@ -556,8 +750,9 @@ def main_path(work, kernels, card):
     check(launches["ctc_alpha"] > 0, "ctc_alpha was not launched by evaluate")
     # inference_mode: no gradient, so no alpha history and no backward
     check(launches["ctc_beta"] == 0, "evaluate launched the backward kernel")
+    check(launches["conv0"] == 0, "evaluate launched conv0 without SPEECHT_PALLAS_CONV0")
     print(f"main path: kernel launches {launches}")
-    steady_ms = (marks[-2] - marks[0]) / (len(marks) - 2) * 1e3
+    steady_ms = batch_period_ms(marks)
     print(
         f"main path: evaluate B={MAIN_BATCH} x {MAIN_STEPS} batches (T=1024 "
         f"frame bucket), whole run with set-up: {wall / MAIN_STEPS * 1e3!r} "
@@ -637,7 +832,6 @@ def write_port_checkpoint(train_dir, weights):
 def train_path(work, data_dir, weights, kernels, card):
     from speecht_tpu_torch.data.features import feature_size
     from speecht_tpu_torch.evaluation import Evaluation
-    from speecht_tpu_torch.train import step as tstep
     from speecht_tpu_torch.train.checkpoint import CheckpointManager
 
     t0 = time.perf_counter()
@@ -654,21 +848,7 @@ def train_path(work, data_dir, weights, kernels, card):
         "--batch-size", str(MAIN_BATCH),
     ]
 
-    # host time of each step's call: the batch period in steady state
-    marks = []
-    make = tstep.make_train_step_acc
-
-    def timed_make(*args, **kwargs):
-        step = make(*args, **kwargs)
-
-        def timed(*a):
-            marks.append(time.perf_counter())
-            return step(*a)
-
-        return timed
-
-    tstep.make_train_step_acc = timed_make
-    try:
+    with step_marks() as marks:
         for k in kernels:
             k.launches = 0
         torch.cuda.synchronize()
@@ -678,8 +858,6 @@ def train_path(work, data_dir, weights, kernels, card):
                                *common])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        tstep.make_train_step_acc = make
     launches = {k.name: k.launches for k in kernels}
 
     lines = out.splitlines()
@@ -695,11 +873,12 @@ def train_path(work, data_dir, weights, kernels, card):
     check(lines[-1] == "Done training -- step limit reached", "train did not finish")
     mgr = CheckpointManager(run_dir)
     check(mgr.latest_step() == TRAIN_STEPS, f"no checkpoint at step {TRAIN_STEPS}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the train path")
+    for name in ("ctc_alpha", "ctc_beta"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the train path")
+    check(launches["conv0"] == 0, "train launched conv0 without SPEECHT_PALLAS_CONV0")
     print(f"train path: kernel launches {launches}; losses {losses}; "
           f"checkpoints {mgr.all_steps()}")
-    steady_ms = (marks[-1] - marks[1]) / (len(marks) - 2) * 1e3
+    steady_ms = step_period_ms(marks)
     print(f"train path: B={MAIN_BATCH} x {TRAIN_STEPS} steps, whole run with "
           f"set-up {wall / TRAIN_STEPS * 1e3!r} ms/step; steady state (step "
           f"calls 2-{len(marks)}) {steady_ms!r} ms/step; on {card}")
@@ -810,8 +989,8 @@ def ctc_loss_masked(logits, batch):
 
 
 def train_step_device(data_dir, weights, card):
-    """One train step on a resident batch by CUDA events, its share of the
-    dense bf16 peak, and conv_0's F.conv1d time beside its bound."""
+    """One train step on a resident batch by CUDA events and its share of
+    the dense bf16 peak."""
     from speecht_tpu_torch.data.features import feature_size
     from speecht_tpu_torch.data.pipeline import build_batch, to_device
     from speecht_tpu_torch.data.reader import SpeechCorpusReader
@@ -858,40 +1037,198 @@ def train_step_device(data_dir, weights, card):
         f"peak memory {peak_gb:.2f} GB; on {card}"
     )
 
-    # conv_0 as F.conv1d: the layer TPU kernel #3 (conv0_pallas) computes
-    conv0 = model.conv_0
-    x = batch.features.transpose(1, 2).contiguous()
-    with torch.no_grad():
-        conv_ms = time_ms(lambda: conv0(x, torch.bfloat16), iters=20)
-    T = x.shape[-1]
-    flop0 = 2 * MAIN_BATCH * (T // 2) * 48 * x.shape[1] * conv0.weight.shape[0]
-    bytes0 = 2 * (x.numel() + MAIN_BATCH * (T // 2) * conv0.weight.shape[0]
-                  + conv0.weight.numel() + conv0.bias.numel())
-    t_ops, t_bytes = flop0 / PEAK_BF16_OPS_PER_S, bytes0 / PEAK_BYTES_PER_S
-    print(
-        f"conv_0 (width 48, stride 2, {x.shape[1]}->{conv0.weight.shape[0]}, "
-        f"B={MAIN_BATCH} T={T}) + bias + ReLU as F.conv1d bf16: {conv_ms!r} ms; "
-        f"bound {max(t_ops, t_bytes) * 1e3!r} ms ("
-        f"{'operations' if t_ops >= t_bytes else 'bytes'}: {flop0 / 1e12:.3f} "
-        f"TFLOP, {bytes0 / 1e6:.1f} MB); on {card}"
+
+# -- phase 3c: the conv0 path ------------------------------------------------
+
+
+def event_payloads(path):
+    """The payloads of a TFRecord event file (length, crc, data, crc)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, at = [], 0
+    while at < len(data):
+        (n,) = struct.unpack("<Q", data[at: at + 8])
+        out.append(data[at + 12: at + 12 + n])
+        at += 16 + n
+    return out
+
+
+def conv0_path(work, data_dir, weights, kernels, card, default_eval_ms,
+               default_train_ms):
+    """``train --spec-augment --verbose-summaries --profile-steps 2:4`` and
+    then ``evaluate`` restoring its step-8 checkpoint, both with
+    SPEECHT_PALLAS_CONV0=1 set for this phase only; the launch counts set
+    to 0 just before each command and read just after."""
+    from speecht_tpu_torch.evaluation import Evaluation
+    from speecht_tpu_torch.ops import conv0
+
+    run_dir = os.path.join(work, "train", "conv0")
+    write_port_checkpoint(run_dir, weights)
+    log_dir = os.path.join(work, "log")
+    common = [
+        "--data-dir", data_dir,
+        "--train-dir", os.path.join(work, "train"),
+        "--log-dir", log_dir,
+        "--run-name", "conv0",
+        "--batch-size", str(MAIN_BATCH),
+    ]
+    eval_argv = ["evaluate", "--test", "--no-save", "--step-count", str(MAIN_STEPS),
+                 *common]
+    os.environ[conv0.ENV_VAR] = "1"
+    try:
+        with step_marks() as marks:
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _state, out = run_cli([
+                "train", "--spec-augment", "--verbose-summaries",
+                "--profile-steps", "2:4", "--max-steps", str(TRAIN_STEPS),
+                "--steps-per-checkpoint", str(TRAIN_INTERVAL), *common,
+            ])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        train_launches = {k.name: k.launches for k in kernels}
+        with batch_marks() as bmarks:
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats, eout = run_cli(eval_argv)
+            torch.cuda.synchronize()
+            ewall = time.perf_counter() - t0
+        eval_launches = {k.name: k.launches for k in kernels}
+    finally:
+        os.environ.pop(conv0.ENV_VAR, None)
+
+    lines = out.splitlines()
+    print("conv0 path: " + " | ".join(ln for ln in lines if ln.startswith(
+        ("Restored", "SpecAugment", "global step", "Profiler", "Done"))))
+    losses = [float(ln.split()[10]) for ln in lines if ln.startswith("global step")]
+    check(any(ln.startswith("SpecAugment on:") for ln in lines), "no SpecAugment line")
+    check(len(losses) == TRAIN_STEPS // TRAIN_INTERVAL
+          and all(math.isfinite(x) and 0 < x < 1e29 for x in losses),
+          f"conv0 path: train losses not well formed: {losses}")
+    check(lines[-1] == "Done training -- step limit reached", "conv0 path: train did not finish")
+    summaries = TRAIN_STEPS // TRAIN_INTERVAL  # activation-summary forwards
+    check(train_launches["conv0"] == TRAIN_STEPS + summaries,
+          f"conv0 path: {train_launches['conv0']} conv0 launches in train, not "
+          f"{TRAIN_STEPS} steps + {summaries} summary forwards")
+    for name in ("ctc_alpha", "ctc_beta"):
+        check(train_launches[name] > 0, f"conv0 path: {name} did not run in train")
+
+    (events,) = os.listdir(os.path.join(log_dir, "conv0_train"))
+    payloads = event_payloads(os.path.join(log_dir, "conv0_train", events))
+    n_images = sum(b"\x89PNG" in p for p in payloads)
+    n_acts = sum(b"activations/conv_0" in p for p in payloads)
+    check(n_images > 0 and n_acts > 0,
+          f"conv0 path: event file has {n_images} image and {n_acts} activation records")
+    trace = os.path.join(log_dir, "profile", "conv0_steps_2-4.pt.trace.json")
+    check(f"Profiler trace written to {log_dir}/profile" in lines and os.path.exists(trace),
+          "conv0 path: no profiler trace")
+    with open(trace) as f:
+        trace_events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in trace_events if e.get("cat") == "kernel"]
+    # the wrapper's two launches: the weight rearrangement, then the conv
+    conv0_us = {
+        part: [e["dur"] for e in kernel_events if part in e.get("name", "")]
+        for part in ("conv0_phase_weights_kernel", "conv0_kernel")
+    }
+    print(f"conv0 path: event file {len(payloads)} records, {n_images} with images, "
+          f"{n_acts} with activations/conv_0; profiler trace "
+          f"{os.path.getsize(trace)} bytes, {len(kernel_events)} device kernel "
+          f"events over 2 steps; device us per launch: {conv0_us}")
+
+    elosses = [float(ln.split()[3]) for ln in eout.splitlines()
+               if ln.startswith("validation average loss")]
+    check(len(elosses) == MAIN_STEPS and all(math.isfinite(x) and 0 < x < 1e29 for x in elosses),
+          f"conv0 path: evaluate losses {elosses}")
+    restored = Evaluation(parsed_flags(eval_argv)).load_weights()
+    check(restored == TRAIN_STEPS, f"conv0 path: evaluate restored step {restored}")
+    check(eval_launches["conv0"] == MAIN_STEPS,
+          f"conv0 path: {eval_launches['conv0']} conv0 launches in evaluate, "
+          f"not {MAIN_STEPS}")
+    check(eval_launches["ctc_alpha"] > 0, "conv0 path: ctc_alpha did not run in evaluate")
+    print(f"conv0 path: launches train {train_launches}, evaluate {eval_launches}; "
+          f"train losses {losses}; evaluate restored step {restored}, losses "
+          f"{elosses}, LER {stats.global_letter_error_rate!r}")
+    print(f"conv0 path: train (with SpecAugment, summaries, profiler 2:4) whole run "
+          f"{wall / TRAIN_STEPS * 1e3!r} ms/step, steady state {step_period_ms(marks)!r} "
+          f"ms/step (default path, phase 3b: {default_train_ms!r}); evaluate whole run "
+          f"{ewall / MAIN_STEPS * 1e3!r} ms/batch, steady state "
+          f"{batch_period_ms(bmarks)!r} ms/batch (default path, phase 3: "
+          f"{default_eval_ms!r}); on {card}")
+    return train_launches, eval_launches
+
+
+def conv0_device_steps(data_dir, weights, card):
+    """The train and eval steps on one resident batch by CUDA events, the
+    default path and the conv0 path in turns (default, conv0, conv0,
+    default)."""
+    from speecht_tpu_torch.data.features import feature_size
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+    from speecht_tpu_torch.execution import build_model
+    from speecht_tpu_torch.ops import conv0
+    from speecht_tpu_torch.train import step as tstep
+    from speecht_tpu_torch.train.state import create_train_state, make_optimizer
+    from speecht_tpu_torch.weights import load_weight_dir
+
+    model = build_model(feature_size("power"), types.SimpleNamespace())
+    model.load_state_dict(load_weight_dir(weights, model))
+    model.cuda()
+    tx = make_optimizer()
+    box = [create_train_state(dict(model.named_parameters()), tx, 1e-4),
+           tstep.init_metrics_acc(torch.device("cuda"))]
+    samples = SpeechCorpusReader(data_dir).load_samples(
+        "train", feature_type="power", seed=0, limit_count=MAIN_BATCH
     )
-    return ms, share, conv_ms
+    batch = to_device(build_batch(list(samples)), torch.device("cuda"))
+    train_step = tstep.make_train_step_acc(model, tx)
+    eval_step = tstep.make_eval_step(model)
+
+    def one():
+        box[0], box[1] = train_step(box[0], box[1], batch)
+
+    times = {"default": [], "conv0": []}
+    try:
+        for path in ("default", "conv0", "conv0", "default"):
+            if path == "conv0":
+                os.environ[conv0.ENV_VAR] = "1"
+            else:
+                os.environ.pop(conv0.ENV_VAR, None)
+            model.train()
+            t = time_ms(one, iters=5, warmup=1)
+            model.eval()
+            e = time_ms(lambda: eval_step(batch), iters=10)
+            times[path].append((t, e))
+    finally:
+        os.environ.pop(conv0.ENV_VAR, None)
+    print("device step times B=64 T=%d bf16 (CUDA events; train ms, eval ms; in "
+          "turns default, conv0, conv0, default): default %r, conv0 %r; on %s"
+          % (batch.features.shape[1], times["default"], times["conv0"], card))
+    return times
 
 
 # -- phase 4: one batch, card vs CPU ----------------------------------------
 
 
-def parity(data_dir, weights):
+def parity(data_dir, weights, conv0_path=False):
+    """One eval batch on the card and on the CPU, float32, TF32 off. With
+    ``conv0_path``, SPEECHT_PALLAS_CONV0=1: the conv0 kernel on the card,
+    conv0_plain on the CPU."""
     from speecht_tpu_torch.data.features import feature_size
     from speecht_tpu_torch.data.pipeline import build_batch, to_device
     from speecht_tpu_torch.data.reader import SpeechCorpusReader
     from speecht_tpu_torch.execution import build_model
+    from speecht_tpu_torch.ops import conv0, conv0_cuda
     from speecht_tpu_torch.train.step import make_eval_step
     from speecht_tpu_torch.weights import load_weight_dir
 
+    label = "parity (conv0 path)" if conv0_path else "parity"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print("parity: float32 compute, torch.backends.cudnn.allow_tf32 = False, "
+    print(f"{label}: float32 compute, torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False")
     samples = SpeechCorpusReader(data_dir).load_samples(
         "test", feature_type="power", seed=0, limit_count=8
@@ -900,13 +1237,22 @@ def parity(data_dir, weights):
 
     flags = types.SimpleNamespace(compute_dtype="float32")
     outs = {}
-    for name in ("cuda", "cpu"):
-        device = torch.device(name)
-        model = build_model(feature_size("power"), flags)
-        model.load_state_dict(load_weight_dir(weights, model))
-        step = make_eval_step(model.to(device).eval())
-        loss, decoded, lengths = step(to_device(batch, device, "float32"))
-        outs[name] = (float(loss), decoded.cpu().numpy(), lengths.cpu().numpy())
+    before = (conv0_cuda.CONV0.launches, conv0_cuda.CONV0.plain_calls)
+    if conv0_path:
+        os.environ[conv0.ENV_VAR] = "1"
+    try:
+        for name in ("cuda", "cpu"):
+            device = torch.device(name)
+            model = build_model(feature_size("power"), flags)
+            model.load_state_dict(load_weight_dir(weights, model))
+            step = make_eval_step(model.to(device).eval())
+            loss, decoded, lengths = step(to_device(batch, device, "float32"))
+            outs[name] = (float(loss), decoded.cpu().numpy(), lengths.cpu().numpy())
+    finally:
+        os.environ.pop(conv0.ENV_VAR, None)
+    taken = (conv0_cuda.CONV0.launches - before[0], conv0_cuda.CONV0.plain_calls - before[1])
+    check(taken == ((1, 1) if conv0_path else (0, 0)),
+          f"{label}: conv0 kernel launches and plain calls {taken}")
     (lg, dg, ng), (lc, dc, nc) = outs["cuda"], outs["cpu"]
     total = same = 0
     for i in range(dg.shape[0]):
@@ -915,11 +1261,11 @@ def parity(data_dir, weights):
         same += int((dg[i, :width] == dc[i, :width]).sum())
     share = same / max(total, 1)
     loss_rel = abs(lg - lc) / abs(lc)
-    print(f"parity: loss cuda {lg!r} cpu {lc!r} rel diff {loss_rel!r} "
+    print(f"{label}: loss cuda {lg!r} cpu {lc!r} rel diff {loss_rel!r} "
           f"(tolerance {PARITY_LOSS_RTOL}); decoded tokens equal {same}/{total} "
           f"= {share!r} (at least {PARITY_MIN_TOKEN_SHARE})")
-    check(loss_rel <= PARITY_LOSS_RTOL, "card and CPU losses disagree")
-    check(share >= PARITY_MIN_TOKEN_SHARE, "card and CPU decodes disagree")
+    check(loss_rel <= PARITY_LOSS_RTOL, f"{label}: card and CPU losses disagree")
+    check(share >= PARITY_MIN_TOKEN_SHARE, f"{label}: card and CPU decodes disagree")
 
 
 def parity_train(data_dir, weights):
@@ -989,10 +1335,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 2
-    from speecht_tpu_torch.ops import ctc_cuda, cuda_build
+    from speecht_tpu_torch.ops import conv0, conv0_cuda, ctc_cuda, cuda_build
 
-    kernels = list(ctc_cuda.KERNELS)
+    kernels = list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
     device = torch.device("cuda")
+    # the default phases run without the opt-in conv0 path; phases 3c and
+    # 4c set it for themselves
+    os.environ.pop(conv0.ENV_VAR, None)
 
     # 1. environment
     card = card_line()
@@ -1028,17 +1377,34 @@ def main() -> int:
     check_beta("largest bucket", largest,
                rng.uniform(0.5, 1.5, 8).astype(np.float32), device)
     check_beta("edge rows", edge_inputs(), edge_grad(7), device, time_it=False)
+
+    # 2c. the conv0 kernel against its plain version
+    bf16, f32 = torch.bfloat16, torch.float32
+    conv0_main = check_conv0("main shape", 64, 1024, 128, 250, bf16, device)
+    check_conv0("main shape", 64, 1024, 128, 250, f32, device)
+    check_conv0("largest bucket", 8, 4352, 128, 250, bf16, device)
+    for name, B, T, I, O in (("T=48", 2, 48, 128, 250), ("T=50", 2, 50, 128, 250),
+                             ("B=1", 1, 1024, 128, 250), ("O=29", 2, 256, 128, 29),
+                             ("I=64", 2, 256, 64, 250)):
+        for dtype in (bf16, f32):
+            check_conv0(name, B, T, I, O, dtype, device, time_it=False)
+    check_conv0_grads(device)
     print("kernel launches in the comparisons: "
           + str({k.name: k.launches for k in kernels}))
 
-    # 3. evaluate; 3b. train; 4. and 4b. card vs CPU
+    # 3. evaluate; 3b. train; 3c. the conv0 path; 4. and 4b. card vs CPU
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         eval_launches, data_dir, weights, steady_ms = main_path(work, kernels, card)
         breakdown(data_dir, weights, steady_ms, card)
-        train_launches, _train_ms = train_path(work, data_dir, weights, kernels, card)
+        train_launches, train_ms = train_path(work, data_dir, weights, kernels, card)
         train_step_device(data_dir, weights, card)
+        conv0_train, conv0_eval = conv0_path(
+            work, data_dir, weights, kernels, card, steady_ms, train_ms
+        )
+        conv0_device_steps(data_dir, weights, card)
         parity(data_dir, weights)
         parity_train(data_dir, weights)
+        parity(data_dir, weights, conv0_path=True)
 
     # 5. kernels line, then the result line
     alpha_entry = kernel_entry(
@@ -1055,8 +1421,17 @@ def main() -> int:
     beta_entry["launches_by_path"] = {
         "evaluate": eval_launches["ctc_beta"], "train": train_launches["ctc_beta"],
     }
+    conv0_entry = kernel_entry(
+        "conv0", "speecht_tpu_torch/csrc/conv0.cu",
+        "speecht_tpu/ops/conv0_pallas.py:84", conv0_train["conv0"], conv0_main,
+    )
+    conv0_entry["launches_by_path"] = {
+        "evaluate": conv0_eval["conv0"], "train": conv0_train["conv0"],
+        "evaluate (default path)": eval_launches["conv0"],
+        "train (default path)": train_launches["conv0"],
+    }
     print(f"card: {card}")
-    print(json.dumps({"kernels": [alpha_entry, beta_entry]}))
+    print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

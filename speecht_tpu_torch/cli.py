@@ -3,10 +3,11 @@
 Counterpart of ``speecht_tpu/cli.py``. The ``train`` and ``evaluate``
 subcommands have the JAX package's base and per-command flags, with the
 same names and defaults, plus ``--device {cuda,cpu}`` (default ``cuda``;
-without a card it raises). Paths of the JAX package that the port does
-not have yet raise an error that names the flag; none is ignored:
-``train --spec-augment``, ``--profile-steps``, ``--verbose-summaries``,
-``evaluate --language-model``, ``--from-audio``, and on both
+without a card it raises). ``train`` has every flag of the JAX ``train``
+on one device (``--spec-augment``, ``--profile-steps`` and
+``--verbose-summaries`` among them). Paths of the JAX package that the
+port does not have yet raise an error that names the flag; none is
+ignored: ``evaluate --language-model``, ``--from-audio``, and on both
 ``--seq-parallel`` or ``--data-parallel``/``--model-parallel`` above 1.
 The other subcommands come with later parts of the port.
 """
@@ -156,15 +157,18 @@ class CLI:
         )
         p.add_argument(
             "--spec-augment", dest="spec_augment", action="store_true",
-            help="On-device SpecAugment (not ported yet).",
+            help="SpecAugment on the device: 2 frequency and 2 time masks "
+            "per utterance.",
         )
         p.add_argument(
             "--spec-augment-freq-width", dest="spec_augment_freq_width",
             type=int, default=None,
+            help="Frequency-mask width bound (default 15, or 4 for mfcc).",
         )
         p.add_argument(
             "--spec-augment-time-frac", dest="spec_augment_time_frac",
             type=float, default=0.05,
+            help="Time-mask width bound as a share of the valid frames.",
         )
         p.add_argument(
             "--grad-accum", dest="grad_accum", type=int, default=1,
@@ -172,12 +176,14 @@ class CLI:
         )
         p.add_argument(
             "--profile-steps", dest="profile_steps", type=str, default=None,
-            help="Profiler trace over steps START:STOP (not ported yet).",
+            help="torch.profiler trace of steps START:STOP of this launch "
+            "(STOP defaults to START+5), written under <log-dir>/profile.",
         )
         p.add_argument(
             "--verbose-summaries", dest="verbose_summaries",
             action="store_true",
-            help="Images and activation histograms (not ported yet).",
+            help="Also write filter/bias/logits images and activation "
+            "histograms at every checkpoint.",
         )
         p.add_argument(
             "--seq-parallel", dest="seq_parallel", type=int, default=0,
@@ -228,14 +234,7 @@ class CLI:
     def _check_ported(self):
         flags = self.parsed
         unported = []
-        if flags.command == "train":
-            if flags.spec_augment:
-                unported.append("--spec-augment")
-            if flags.profile_steps:
-                unported.append("--profile-steps")
-            if flags.verbose_summaries:
-                unported.append("--verbose-summaries")
-        else:
+        if flags.command == "evaluate":
             if flags.language_model:
                 unported.append("--language-model")
             if flags.from_audio:

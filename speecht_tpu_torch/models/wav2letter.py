@@ -18,12 +18,20 @@ The layout at the public boundary is the JAX one: ``[B, T, F]`` features
 in, ``[B, T//2, num_classes]`` logits out. Inside, activations are
 ``[B, C, T]`` for ``F.conv1d`` (cuDNN on the card; the JAX package leaves
 these convs to XLA the same way).
+
+conv_0 has a second path, opt-in as in JAX: with ``SPEECHT_PALLAS_CONV0=1``
+and a shape ``ops/conv0.py::supported`` admits, it runs through
+``ops/conv0_cuda.py::Conv0Function`` (the hand-written kernel on the card,
+the plain version on the CPU) on the ``[B, T, F]`` features, rounding once
+after the bias as the Pallas path does. Any other shape (odd T, mfcc's 39
+features, T < 48) takes the cuDNN path, which is JAX's semantics.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from speecht_tpu_torch import vocabulary
+from speecht_tpu_torch.ops import conv0, conv0_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +100,25 @@ class Conv1d(nn.Module):
             self.weight.uniform_(-limit, limit, generator=generator)
             self.bias.zero_()
 
+    def conv0_path(self, x: torch.Tensor) -> bool:
+        """True when this call takes the conv_0 kernel path: the env var
+        ``SPEECHT_PALLAS_CONV0=1``, read at each forward as JAX reads it at
+        each trace, and a shape the gate admits."""
+        return os.environ.get(conv0.ENV_VAR) == "1" and conv0.supported(
+            (x.shape[0], x.shape[2], x.shape[1]), self.width, self.stride,
+            self.relu, x.device,
+        )
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``x [B, C, T]`` -> ``[B, O, T']``."""
+        if self.conv0_path(x):
+            # the kernel reads [B, T, I]: the features' own layout, so for
+            # the model's input this transpose undoes the one in forward
+            y = conv0_cuda.conv0(
+                x.transpose(1, 2).to(dtype), self.weight.to(dtype),
+                self.bias.to(dtype),
+            )
+            return y.transpose(1, 2)
         left, right = same_padding(x.shape[-1], self.width, self.stride)
         x = F.pad(x.to(dtype), (left, right))
         y = F.conv1d(x, self.weight.to(dtype), stride=self.stride)

@@ -67,47 +67,10 @@ def _check_smem(name, smem, L):
         )
 
 
-def _device_index(device: torch.device) -> int:
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
-class CtcKernel:
-    """A built kernel library and its launch count.
-
-    ``launches`` goes up by one where the kernel is launched and nowhere
-    else, so a run can show that its path went through the kernel.
-    """
-
-    name = ""
-    # (function, argtypes, restype) of the library's C interface
-    signatures: tuple = ()
-
-    def __init__(self):
-        self.launches = 0
-        self._lib: ctypes.CDLL | None = None
-
-    @property
-    def lib(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = cuda_build.load(self.name)
-            for fn, argtypes, restype in self.signatures:
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            self._lib = lib
-        return self._lib
-
-    def _raise_on(self, code: int) -> None:
-        if code != 0:
-            error_string = getattr(self.lib, f"{self.name}_error_string")
-            raise RuntimeError(
-                f"{self.name} launch failed: {error_string(code).decode()}"
-            )
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-class CtcAlphaKernel(CtcKernel):
+class CtcAlphaKernel(cuda_build.KernelLibrary):
     """``csrc/ctc_alpha.cu``: the per-example loss and the alpha history."""
 
     name = "ctc_alpha"
@@ -156,7 +119,7 @@ class CtcAlphaKernel(CtcKernel):
             alpha_out.data_ptr() if alpha_out is not None else None,
             B, T, C, L,
             vocabulary.BLANK_ID,
-            _device_index(device),
+            cuda_build.device_index(device),
             torch.cuda.current_stream(device).cuda_stream,
         )
         self._raise_on(code)
@@ -164,7 +127,7 @@ class CtcAlphaKernel(CtcKernel):
         return loss
 
 
-class CtcBetaKernel(CtcKernel):
+class CtcBetaKernel(cuda_build.KernelLibrary):
     """``csrc/ctc_beta.cu``: dlogits from the alpha history, by the beta
     recursion, the state posteriors and their scatter onto the classes."""
 
@@ -225,7 +188,7 @@ class CtcBetaKernel(CtcKernel):
             dlogits.data_ptr(),
             B, T, C, L,
             vocabulary.BLANK_ID,
-            _device_index(device),
+            cuda_build.device_index(device),
             torch.cuda.current_stream(device).cuda_stream,
         )
         self._raise_on(code)

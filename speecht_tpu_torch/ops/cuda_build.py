@@ -90,3 +90,44 @@ def build(names: list[str]) -> dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     return ctypes.CDLL(build([name])[name])
+
+
+def device_index(device) -> int:
+    """The CUDA ordinal of ``device`` (the current one for plain ``cuda``)."""
+    import torch
+
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+class KernelLibrary:
+    """A kernel library, built at first use, and its launch count.
+
+    ``launches`` goes up by one where the wrapper launches its kernel and
+    nowhere else, so a run can show that its path went through the kernel.
+    Each library exports ``<name>_error_string`` for its launch codes.
+    """
+
+    name = ""
+    # (function, argtypes, restype) of the library's C interface
+    signatures: tuple = ()
+
+    def __init__(self):
+        self.launches = 0
+        self._lib: ctypes.CDLL | None = None
+
+    @property
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            for fn, argtypes, restype in self.signatures:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            self._lib = lib
+        return self._lib
+
+    def _raise_on(self, code: int) -> None:
+        if code != 0:
+            error_string = getattr(self.lib, f"{self.name}_error_string")
+            raise RuntimeError(
+                f"{self.name} launch failed: {error_string(code).decode()}"
+            )

@@ -1,16 +1,16 @@
 """TensorBoard-compatible metrics writer (pure Python, no TF).
 
-Copy of the scalar and raw-histogram part of
+Copy of the scalar, raw-histogram and image part of
 ``speecht_tpu/train/metrics_writer.py``: the TFRecord event-file format
 
   record  := uint64 length | uint32 masked_crc32c(length) | payload
              | uint32 masked_crc32c(payload)
   payload := tensorflow.Event protobuf (hand-encoded wire format)
 
-so ``evaluate`` writes ``eval_loss`` and ``train`` its scalars and
+so ``evaluate`` writes ``eval_loss`` and ``train`` its scalars,
 parameter histograms (from device-reduced stats, ``train/summaries.py``)
-to ``log/<run>_<type>`` as the JAX package does. Image summaries are not
-ported yet.
+and, with ``--verbose-summaries``, grayscale PNG images and activation
+histograms to ``log/<run>_<type>`` as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ import os
 import socket
 import struct
 import time
+import zlib
+
+import numpy as np
 
 
 def _crc32c_table():
@@ -97,12 +100,50 @@ def _histogram_proto_from_stats(
     return msg
 
 
+def encode_png_grayscale(img: np.ndarray) -> bytes:
+    """Minimal 8-bit grayscale PNG encoder (zlib from the stdlib)."""
+    arr = np.asarray(img, dtype=np.float64)
+    lo, hi = float(arr.min()), float(arr.max())
+    scale = 255.0 / (hi - lo) if hi > lo else 0.0
+    u8 = ((arr - lo) * scale).astype(np.uint8)
+    h, w = u8.shape
+    raw = b"".join(b"\x00" + row.tobytes() for row in u8)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(data))
+            + tag
+            + data
+            + struct.pack(">I", zlib.crc32(tag + data))
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(raw))
+        + chunk(b"IEND", b"")
+    )
+
+
+def _image_proto(img: np.ndarray) -> bytes:
+    """tensorflow.Summary.Image: 1=height 2=width 3=colorspace 4=png bytes."""
+    h, w = img.shape
+    return (
+        _field_varint(1, h)
+        + _field_varint(2, w)
+        + _field_varint(3, 1)  # grayscale
+        + _field_bytes(4, encode_png_grayscale(img))
+    )
+
+
 def _event(
     wall_time: float,
     step: int = 0,
     file_version: str | None = None,
     scalars: dict[str, float] | None = None,
     raw_histograms: dict[str, dict] | None = None,
+    images: dict[str, np.ndarray] | None = None,
 ) -> bytes:
     # tensorflow.Event: 1=wall_time, 2=step, 3=file_version, 5=summary
     msg = _field_double(1, wall_time)
@@ -122,6 +163,12 @@ def _event(
             st["bucket_limits"], st["buckets"],
         )
         summary += _field_bytes(1, _field_bytes(1, tag.encode()) + _field_bytes(5, histo))
+    for tag, img in (images or {}).items():
+        # Summary.Value: 1=tag, 4=image
+        val = _field_bytes(1, tag.encode()) + _field_bytes(
+            4, _image_proto(np.asarray(img))
+        )
+        summary += _field_bytes(1, val)
     if summary:
         msg += _field_bytes(5, summary)
     return msg
@@ -153,6 +200,10 @@ class SummaryWriter:
         """Histogram summaries from device-reduced stats: per tag a dict of
         min/max/num/sum/sum_squares/bucket_limits/buckets."""
         self._write_record(_event(time.time(), step=step, raw_histograms=stats))
+
+    def add_images(self, step: int, images: dict):
+        """Grayscale image summaries from 2-D arrays, one per tag."""
+        self._write_record(_event(time.time(), step=step, images=images))
 
     def flush(self):
         self._f.flush()

@@ -12,7 +12,9 @@ JAX; ``state.params`` are the model's own parameters, which the step
 updates in place. Nothing in a step reads a value back to the host: loss
 and grad-norm sums stay in device tensors, and the gradient-accumulation
 counter is a host int (it is known without asking the device, so no
-device-side ``cond`` is needed as in JAX).
+device-side ``cond`` is needed as in JAX). With SpecAugment the masks'
+key (optimizer step, micro-batch) is kept on the host too; the step reads
+``state.step`` once, at its first call.
 """
 
 from __future__ import annotations
@@ -132,17 +134,49 @@ def make_train_step(model: Wav2Letter, tx: ClipAdam) -> Callable:
     return train_step
 
 
-def init_metrics_acc(device=None) -> dict[str, torch.Tensor]:
+def init_metrics_acc(device=None) -> dict:
     """Device-resident running metrics for the accumulating train step.
 
     ``count`` counts micro-batches; ``updates`` counts optimizer applies
     (equal unless gradient accumulation is on: grad norms average over
-    ``updates``, losses over ``count``).
+    ``updates``, losses over ``count``). ``micro`` is ``count`` kept on
+    the host, the SpecAugment key's micro-batch index.
     """
-    return {
+    acc = {
         k: torch.zeros((), dtype=torch.float32, device=device)
         for k in ("loss_sum", "grad_norm_sum", "count", "updates")
     }
+    acc["micro"] = 0
+    return acc
+
+
+def _fold_metrics(acc, avg_loss, grad_norm, applied):
+    return {
+        "loss_sum": acc["loss_sum"] + avg_loss,
+        "grad_norm_sum": acc["grad_norm_sum"] + grad_norm,
+        "count": acc["count"] + 1.0,
+        "updates": acc["updates"] + applied,
+        "micro": acc["micro"] + 1,
+    }
+
+
+class _AugmentKey:
+    """The SpecAugment key's optimizer step, kept on the host: read from
+    ``state.step`` once, at the first call, then counted as applies run,
+    so the step reads nothing back after it has started."""
+
+    def __init__(self):
+        self.step = None
+
+    def __call__(self, state: TrainState) -> int:
+        if self.step is None:
+            self.step = int(state.step)
+        return self.step
+
+    def applied(self) -> None:
+        """One optimizer apply ran."""
+        if self.step is not None:
+            self.step += 1
 
 
 def init_grad_accum(params: dict[str, torch.Tensor]) -> dict:
@@ -151,7 +185,7 @@ def init_grad_accum(params: dict[str, torch.Tensor]) -> dict:
 
 
 def make_train_step_acc(
-    model: Wav2Letter, tx: ClipAdam, accum_steps: int = 1
+    model: Wav2Letter, tx: ClipAdam, accum_steps: int = 1, augment_fn=None
 ) -> Callable:
     """Accumulating train step: (state, acc, batch) -> (state, acc).
 
@@ -162,19 +196,27 @@ def make_train_step_acc(
     G-averaged gradient (the big-batch update). Loss and grad-norm fold
     into ``acc`` (:func:`init_metrics_acc`), which the training loop reads
     once per ``steps_per_checkpoint``.
+
+    ``augment_fn`` (``ops/augment.py::make_augment_fn``) transforms each
+    micro-batch before the loss, keyed on the optimizer step and the
+    micro-batch index of the metrics window, as in JAX; both keys are host
+    integers (:class:`_AugmentKey`, ``acc["micro"]``).
     """
+    key = _AugmentKey()
+
+    def augment(state, acc, batch):
+        if augment_fn is None:
+            return batch
+        return augment_fn(batch, key(state), acc["micro"])
+
     if accum_steps <= 1:
         update = _make_update_fn(model, tx)
 
         def train_step(state: TrainState, acc, batch):
+            batch = augment(state, acc, batch)
             new_state, avg_loss, grad_norm = update(state, batch)
-            acc = {
-                "loss_sum": acc["loss_sum"] + avg_loss,
-                "grad_norm_sum": acc["grad_norm_sum"] + grad_norm,
-                "count": acc["count"] + 1.0,
-                "updates": acc["updates"] + 1.0,
-            }
-            return new_state, acc
+            key.applied()
+            return new_state, _fold_metrics(acc, avg_loss, grad_norm, 1.0)
 
         return train_step
 
@@ -182,6 +224,7 @@ def make_train_step_acc(
     g = float(accum_steps)
 
     def train_step_accum(state: TrainState, gacc, acc, batch):
+        batch = augment(state, acc, batch)
         grads, avg_loss = grad_fn(state.params, batch)
         gsum = {k: gacc["gsum"][k] + grads[k] for k in grads}
         k = gacc["k"] + 1
@@ -191,13 +234,10 @@ def make_train_step_acc(
             state, grad_norm = _apply_grads(state, gavg, tx)
             gsum = {name: torch.zeros_like(x) for name, x in gsum.items()}
             k, applied = 0, 1.0
-        acc = {
-            "loss_sum": acc["loss_sum"] + avg_loss,
-            "grad_norm_sum": acc["grad_norm_sum"] + grad_norm,
-            "count": acc["count"] + 1.0,
-            "updates": acc["updates"] + applied,
-        }
-        return state, {"gsum": gsum, "k": k}, acc
+            key.applied()
+        return state, {"gsum": gsum, "k": k}, _fold_metrics(
+            acc, avg_loss, grad_norm, applied
+        )
 
     return train_step_accum
 

@@ -6,19 +6,29 @@ Counterpart of ``speecht_tpu/training.py`` (``Training``,
 - an infinite shuffled generator over the cached train split, with
   ``--limit-training-set`` and ``--max-input-frames``;
 - restore-or-create from the run's train dir, ``--reset-learning-rate``;
+- ``--spec-augment``: masks drawn on the device inside the train step,
+  keyed on (optimizer step, micro-batch) (``ops/augment.py``);
 - once per ``--steps-per-checkpoint``: the ``global step ... learning
   rate ... step-time ... average loss ... perplexity`` line, the scalars
   ``loss``/``learning_rate``/``grad_norm``/``step_time``/prefetch stalls,
-  one histogram per parameter, the plateau decay (when the interval's
-  loss exceeds the max of the last three), a checkpoint and
-  "Model saved";
+  one histogram per parameter, with ``--verbose-summaries`` also the
+  filter/bias images and, from a rerun of the forward on the interval's
+  last batch, the activation and logits histograms and the logits image;
+  then the plateau decay (when the interval's loss exceeds the max of
+  the last three), a checkpoint and "Model saved";
+- ``--profile-steps START:STOP`` (STOP defaults to START+5), counted from
+  this launch: a ``torch.profiler`` trace (CPU, and CUDA on the card) of
+  those steps, written under ``<log_dir>/profile``. The JAX loop falls
+  back to wall-clock step times on backends that cannot host its
+  profiler service; ``torch.profiler`` has no such backend, so that
+  branch is not ported;
 - ``--max-steps`` counted from this launch; SIGINT/SIGTERM request a
   deferred stop at a step boundary, then a crash-save.
 
 The loss and grad-norm sums stay on the device; the loop reads them back
-once per interval, never per step. The multi-process, mesh,
-SpecAugment, profiler and image/activation-summary branches of the JAX
-loop are not ported (the CLI refuses their flags).
+once per interval, never per step. The multi-process, mesh and
+sequence-parallel branches of the JAX loop are not ported (the CLI
+refuses their flags).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import time
 import torch
 
 from speecht_tpu_torch.execution import DatasetExecutor, init_state
+from speecht_tpu_torch.ops.augment import make_augment_fn
 from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.train import summaries as tsummaries
 from speecht_tpu_torch.train.metrics_writer import SummaryWriter
@@ -88,8 +99,21 @@ class Training(DatasetExecutor):
                 f"per update (effective batch "
                 f"{flags.batch_size * self.grad_accum})"
             )
+        augment_fn = None
+        if getattr(flags, "spec_augment", False):
+            fw = getattr(flags, "spec_augment_freq_width", None)
+            if fw is None:
+                # the mask budget scaled to the feature axis: 15 of 128
+                # power bins, 4 of 39 mfcc coefficients
+                fw = 4 if flags.feature_type == "mfcc" else 15
+            tf_frac = getattr(flags, "spec_augment_time_frac", 0.05)
+            augment_fn = make_augment_fn(freq_width=fw, time_frac=tf_frac)
+            print(
+                f"SpecAugment on: 2 freq masks (width <= {fw}), "
+                f"2 time masks (width <= {tf_frac:.2f} x valid frames)"
+            )
         train_step = tstep.make_train_step_acc(
-            self.model, tx, accum_steps=self.grad_accum
+            self.model, tx, accum_steps=self.grad_accum, augment_fn=augment_fn
         )
         writer = SummaryWriter(
             os.path.join(flags.log_dir, f"{flags.run_name}_{flags.run_type}")
@@ -151,76 +175,160 @@ class Training(DatasetExecutor):
         gacc = (
             tstep.init_grad_accum(state.params) if self.grad_accum > 1 else None
         )
-        param_summarizer = tsummaries.make_param_summarizer()
+        verbose = bool(getattr(flags, "verbose_summaries", False))
+        param_summarizer = tsummaries.make_param_summarizer(with_images=verbose)
+        act_summarizer = (
+            tsummaries.make_activation_summarizer(self.model) if verbose else None
+        )
+        profiler = None
+        if getattr(flags, "profile_steps", None):
+            profiler = StepProfiler(
+                flags.profile_steps, flags.log_dir, flags.run_name, self.device
+            )
+        start_step = global_step  # --profile-steps counts from this launch
         window_start = time.time()
         stall_mark = (0, 0.0)  # (count, seconds) at the last interval
 
         loader = self.create_loader()
-        for _host_batch, batch in loader:
-            # from the step's in-place update until the crash-save's state
-            # points at the result, a second signal waits (_request_stop)
-            self._in_step = True
-            if gacc is None:
-                state, acc = train_step(state, acc, batch)
-            else:
-                state, gacc, acc = train_step(state, gacc, acc, batch)
-            self._latest_state = state
-            global_step += 1
-            self._latest_global_step = global_step
-            self._in_step = False
+        try:
+            for _host_batch, batch in loader:
+                if profiler is not None:
+                    profiler.before_step(global_step - start_step)
+                # from the step's in-place update until the crash-save's
+                # state points at the result, a second signal waits
+                # (_request_stop)
+                self._in_step = True
+                if gacc is None:
+                    state, acc = train_step(state, acc, batch)
+                else:
+                    state, gacc, acc = train_step(state, gacc, acc, batch)
+                self._latest_state = state
+                global_step += 1
+                self._latest_global_step = global_step
+                self._in_step = False
+                if profiler is not None:
+                    profiler.after_step(global_step - start_step)
 
-            if self._stop_requested:
-                print("\nInterrupted -- saving checkpoint before exit", flush=True)
-                return state
+                if self._stop_requested:
+                    print("\nInterrupted -- saving checkpoint before exit", flush=True)
+                    return state
 
-            if global_step % spc == 0:
-                # the one readback per interval: four sums and the lr
-                m = torch.stack(
-                    [acc["loss_sum"], acc["grad_norm_sum"], acc["count"],
-                     acc["updates"], state.learning_rate]
-                ).tolist()
-                loss_sum, grad_norm_sum, count, updates, lr = m
-                acc = tstep.init_metrics_acc(self.device)
-                avg_loss = loss_sum / max(count, 1.0)
-                # grad norms exist only at optimizer applies
-                avg_grad_norm = grad_norm_sum / max(updates, 1.0)
-                step_time = (time.time() - window_start) / spc
-                print(
-                    "global step {:d} learning rate {:.4f} step-time "
-                    "{:.2f} average loss {:.2f} perplexity {:.2f}".format(
-                        global_step, lr, step_time, avg_loss, perplexity(avg_loss)
-                    ),
-                    flush=True,
-                )
-                d_n = loader.stall_count - stall_mark[0]
-                d_s = loader.stall_seconds - stall_mark[1]
-                stall_mark = (loader.stall_count, loader.stall_seconds)
-                if d_n:
-                    print(
-                        f"prefetch stalled {d_n} times ({d_s:.2f}s) this interval",
-                        flush=True,
+                if global_step % spc == 0:
+                    state, window_start, stall_mark = self._end_interval(
+                        state, acc, batch, global_step, writer, ckpt, loader,
+                        previous_losses, window_start, stall_mark,
+                        param_summarizer, act_summarizer,
                     )
-                writer.add_scalars(global_step, {
-                    "loss": avg_loss,
-                    "learning_rate": lr,
-                    "grad_norm": avg_grad_norm,
-                    "step_time": step_time,
-                    "prefetch_stalls": float(d_n),
-                    "prefetch_stall_seconds": d_s,
-                })
-                writer.add_raw_histograms(global_step, param_summarizer(state.params))
-                writer.flush()
-
-                if should_decay_learning_rate(
-                    previous_losses, avg_loss, flags.learning_rate_decay_factor
-                ):
-                    state = tstep.decay_learning_rate(
-                        state, flags.learning_rate_decay_factor
-                    )
-                    self._latest_state = state
-                previous_losses.append(avg_loss)
-
-                ckpt.save(state, step=global_step)
-                print("Model saved", flush=True)
-                window_start = time.time()
+                    acc = tstep.init_metrics_acc(self.device)
+        finally:
+            if profiler is not None:
+                profiler.close()
         return state
+
+    def _end_interval(self, state, acc, batch, global_step, writer, ckpt,
+                      loader, previous_losses, window_start, stall_mark,
+                      param_summarizer, act_summarizer):
+        """The once-per-interval work: the readback and the line, the
+        summaries, the plateau decay and the checkpoint. Returns (state,
+        the next window's start, the stall mark)."""
+        flags = self.flags
+        # the one readback per interval: four sums and the lr
+        m = torch.stack(
+            [acc["loss_sum"], acc["grad_norm_sum"], acc["count"],
+             acc["updates"], state.learning_rate]
+        ).tolist()
+        loss_sum, grad_norm_sum, count, updates, lr = m
+        avg_loss = loss_sum / max(count, 1.0)
+        # grad norms exist only at optimizer applies
+        avg_grad_norm = grad_norm_sum / max(updates, 1.0)
+        step_time = (time.time() - window_start) / flags.steps_per_checkpoint
+        print(
+            "global step {:d} learning rate {:.4f} step-time "
+            "{:.2f} average loss {:.2f} perplexity {:.2f}".format(
+                global_step, lr, step_time, avg_loss, perplexity(avg_loss)
+            ),
+            flush=True,
+        )
+        d_n = loader.stall_count - stall_mark[0]
+        d_s = loader.stall_seconds - stall_mark[1]
+        stall_mark = (loader.stall_count, loader.stall_seconds)
+        if d_n:
+            print(
+                f"prefetch stalled {d_n} times ({d_s:.2f}s) this interval",
+                flush=True,
+            )
+        writer.add_scalars(global_step, {
+            "loss": avg_loss,
+            "learning_rate": lr,
+            "grad_norm": avg_grad_norm,
+            "step_time": step_time,
+            "prefetch_stalls": float(d_n),
+            "prefetch_stall_seconds": d_s,
+        })
+        # parameter histograms (+ filter/bias images when verbose), and the
+        # activation summaries of the interval's last batch
+        hists, images = param_summarizer(state.params)
+        writer.add_raw_histograms(global_step, hists)
+        if images:
+            writer.add_images(global_step, images)
+        if act_summarizer is not None:
+            ahists, aimages = act_summarizer(batch.features)
+            writer.add_raw_histograms(global_step, ahists)
+            writer.add_images(global_step, aimages)
+        writer.flush()
+
+        if should_decay_learning_rate(
+            previous_losses, avg_loss, flags.learning_rate_decay_factor
+        ):
+            state = tstep.decay_learning_rate(
+                state, flags.learning_rate_decay_factor
+            )
+            self._latest_state = state
+        previous_losses.append(avg_loss)
+
+        ckpt.save(state, step=global_step)
+        print("Model saved", flush=True)
+        return state, time.time(), stall_mark
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace over the steps [START, STOP) of this
+    launch (``--profile-steps START:STOP``, STOP = START+5 when left out),
+    CPU activity and, on the card, CUDA activity. The trace is written as
+    Chrome trace JSON under ``<log_dir>/profile``."""
+
+    def __init__(self, spec: str, log_dir: str, run_name: str, device):
+        lo, _, hi = spec.partition(":")
+        self.start, self.stop = int(lo), int(hi or int(lo) + 5)
+        self.log_dir = log_dir
+        self.path = os.path.join(
+            log_dir, "profile",
+            f"{run_name}_steps_{self.start}-{self.stop}.pt.trace.json",
+        )
+        self.device = torch.device(device)
+        self._prof = None
+
+    def before_step(self, done: int) -> None:
+        """``done``: steps this launch has taken before the next one."""
+        if self._prof is None and done == self.start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+
+    def after_step(self, done: int) -> None:
+        if self._prof is not None and done >= self.stop:
+            self.close()
+
+    def close(self) -> None:
+        """Ends an open trace (at STOP, or where the loop ends) and writes it."""
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the window's kernels end in it
+        self._prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        print(f"Profiler trace written to {self.log_dir}/profile", flush=True)

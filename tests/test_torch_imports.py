@@ -79,3 +79,15 @@ def test_every_module_of_the_train_slice_is_checked():
         "speecht_tpu_torch.ops.ctc_cuda",
     ):
         assert m in mods
+
+
+def test_every_module_of_the_conv0_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.ops.conv0",
+        "speecht_tpu_torch.ops.conv0_cuda",
+        "speecht_tpu_torch.ops.augment",
+        "speecht_tpu_torch.ops.cuda_build",
+        "speecht_tpu_torch.models.wav2letter",
+    ):
+        assert m in mods

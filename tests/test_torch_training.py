@@ -5,8 +5,9 @@ synthetic cached corpus (numpy seed): the step lines, the checkpoints, a
 resume, and ``evaluate --device cpu`` restoring the port's own
 checkpoint. The loop's plateau decay against the JAX loop's rule, the
 deferred stop, the device histograms and their event records against the
-JAX package's (byte for byte: the same wire format), and the flags that
-are not ported yet.
+JAX package's (byte for byte: the same wire format), ``--spec-augment``,
+``--verbose-summaries`` and ``--profile-steps`` end to end, and the flags
+that are not ported yet.
 """
 
 import os
@@ -137,10 +138,7 @@ def test_evaluate_without_checkpoint_keeps_the_jax_error(corpus):
 @pytest.mark.parametrize(
     "flags,named",
     [
-        (["--spec-augment"], "--spec-augment"),
         (["--seq-parallel", "2"], "--seq-parallel"),
-        (["--profile-steps", "2:4"], "--profile-steps"),
-        (["--verbose-summaries"], "--verbose-summaries"),
         (["--data-parallel", "2"], "--data-parallel"),
         (["--model-parallel", "2"], "--model-parallel"),
     ],
@@ -148,6 +146,68 @@ def test_evaluate_without_checkpoint_keeps_the_jax_error(corpus):
 def test_unported_train_flags_raise(corpus, flags, named):
     with pytest.raises(NotImplementedError, match=named):
         CLI(_argv(corpus, "train", "--run-name", "x", *flags)).run()
+
+
+def _event_payloads(path):
+    """The payloads of a TFRecord event file (length, crc, data, crc)."""
+    import struct
+
+    data, out, at = open(path, "rb").read(), [], 0
+    while at < len(data):
+        (n,) = struct.unpack("<Q", data[at: at + 8])
+        out.append(data[at + 12: at + 12 + n])
+        at += 16 + n
+    return out
+
+
+def test_train_with_spec_augment_verbose_summaries_and_profile(corpus, capsys):
+    """The three flags together on the CPU: the SpecAugment line, image
+    and activation summaries in the event file at each checkpoint, and a
+    torch.profiler trace of steps 1:2 under <log_dir>/profile."""
+    import json
+
+    run = ["--run-name", "flags"]
+    CLI(_argv(corpus, "train", *run, "--max-steps", "4",
+              "--steps-per-checkpoint", "2", "--spec-augment",
+              "--verbose-summaries", "--profile-steps", "1:2")).run()
+    lines = capsys.readouterr().out.splitlines()
+    assert ("SpecAugment on: 2 freq masks (width <= 15), "
+            "2 time masks (width <= 0.05 x valid frames)") in lines
+    assert lines.count(f"Profiler trace written to {corpus / 'log'}/profile") == 1
+    steps = [STEP_LINE.match(ln) for ln in lines if ln.startswith("global step")]
+    assert all(steps) and [int(m.group(1)) for m in steps] == [2, 4]
+    assert all(0 < float(m.group(3)) < 1e29 for m in steps)
+
+    (event_file,) = os.listdir(corpus / "log" / "flags_train")
+    payloads = _event_payloads(corpus / "log" / "flags_train" / event_file)
+    images = [p for p in payloads if b"\x89PNG" in p]
+    acts = [p for p in payloads if b"activations/conv_0" in p]
+    assert len(images) == 4  # filter/bias images and the logits image, twice
+    assert len(acts) == 2
+    # per checkpoint: one record of filter/bias images (conv_0..conv_5 at
+    # 2 body layers), one of the logits image
+    params_images, logits_images = images[0::2], images[1::2]
+    assert all(b"conv_0/kernel" in p and b"conv_5/bias" in p for p in params_images)
+    assert all(b"logits" in p for p in logits_images)
+
+    (trace,) = os.listdir(corpus / "log" / "profile")
+    assert trace == "flags_steps_1-2.pt.trace.json"
+    with open(corpus / "log" / "profile" / trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv1d" in str(e.get("name", "")) for e in events)
+
+
+def test_profile_window_defaults_to_five_steps(tmp_path):
+    prof = training.StepProfiler("3", str(tmp_path), "r", "cpu")
+    assert (prof.start, prof.stop) == (3, 8)
+    prof.before_step(2)
+    assert prof._prof is None
+    prof.before_step(3)
+    torch.zeros(4).sum()
+    prof.after_step(4)
+    assert prof._prof is not None  # still inside 3:8
+    prof.close()  # the loop ended early: the trace is still written
+    assert os.listdir(tmp_path / "profile") == ["r_steps_3-8.pt.trace.json"]
 
 
 def test_train_flags_and_defaults_match_jax():
@@ -248,7 +308,8 @@ def test_device_histograms_and_records_match_jax():
         "conv_0.weight": torch.from_numpy(rng.randn(16, 8, 5).astype(np.float32)),
         "conv_0.bias": torch.zeros(16),
     }
-    ours = summaries.make_param_summarizer()(params)
+    ours, images = summaries.make_param_summarizer()(params)
+    assert images == {}  # images only with --verbose-summaries
     theirs = jax.device_get(jsummaries.make_param_summarizer()({
         "conv_0": {
             "kernel": jnp.asarray(params["conv_0.weight"].numpy().transpose(2, 1, 0)),
