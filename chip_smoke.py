@@ -28,10 +28,12 @@ drives the port's main path through its normal entry point, and fails
    against alpha+beta).
 2c. The conv0 kernel against ``conv0_plain`` on the card:
    the main shape (B=64, T=1024, I=128, O=250) in bf16 and float32, the
-   largest bucket (B=8, T=4352) and edge shapes (T=48, T=50, B=1, O=29,
-   I=64), with time, plain time, the ``F.conv1d`` + bias + ReLU yardstick
-   and the bound; ``Conv0Function``'s gradients against autograd through
-   ``conv0_plain``.
+   largest bucket (B=8, T=4352) and edge shapes of the bf16 kernel's
+   128x256 tiles and 64-channel K chunks (T=48, T=50, T=1000, B=1, O=16,
+   O=29, O=300, I=64, I=256), with time, plain time, the ``F.conv1d`` +
+   bias + ReLU yardstick and the bound; two bf16 calls bit-equal;
+   ``Conv0Function``'s gradients against autograd through
+   ``conv0_plain``; the kernels' registers, spills and shared memory.
 3. The evaluate path: ``CLI(["evaluate", ...]).run()`` on a synthetic
    cached corpus (256 utterances of 600-1024 frames) with full-width
    random weights (128/250/2000/29, 11 layers) written as a
@@ -565,6 +567,22 @@ def check_conv0(name, B, T, I, O, dtype, device, time_it=True, seed=0):
     result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                   bound_ms=bound_ms, bound_by=bound_by)
     return result
+
+
+def check_conv0_bit_equal(device):
+    """Two bf16 calls at the main shape on the same inputs are bit-equal:
+    the kernel has no atomics, so a difference is a race on the weight
+    ring or the slab buffers."""
+    from speecht_tpu_torch.ops import conv0_cuda
+
+    x, w, b = conv0_inputs(3, 64, 1024, 128, 250, torch.bfloat16, device)
+    first = conv0_cuda.CONV0(x, w, b)
+    second = conv0_cuda.CONV0(x, w, b)
+    torch.cuda.synchronize()
+    equal = torch.equal(first, second)
+    print("conv0 two bf16 calls at B=64 T=1024 I=128 O=250: "
+          + ("bit-equal" if equal else "DIFFER"))
+    check(equal, "conv0: two calls on the same inputs differ")
 
 
 def check_conv0_grads(device):
@@ -1132,7 +1150,7 @@ def conv0_path(work, data_dir, weights, kernels, card, default_eval_ms,
     # the wrapper's two launches: the weight rearrangement, then the conv
     conv0_us = {
         part: [e["dur"] for e in kernel_events if part in e.get("name", "")]
-        for part in ("conv0_phase_weights_kernel", "conv0_kernel")
+        for part in ("conv0_phase_weights_kernel", "conv0_bf16_kernel")
     }
     print(f"conv0 path: event file {len(payloads)} records, {n_images} with images, "
           f"{n_acts} with activations/conv_0; profiler trace "
@@ -1162,9 +1180,9 @@ def conv0_path(work, data_dir, weights, kernels, card, default_eval_ms,
 
 
 def conv0_device_steps(data_dir, weights, card):
-    """The train and eval steps on one resident batch by CUDA events, the
-    default path and the conv0 path in turns (default, conv0, conv0,
-    default)."""
+    """The train and eval steps, and the model's conv_0 layer forward alone
+    (no grad), on one resident batch by CUDA events, the default path and
+    the conv0 path in turns (default, conv0, conv0, default)."""
     from speecht_tpu_torch.data.features import feature_size
     from speecht_tpu_torch.data.pipeline import build_batch, to_device
     from speecht_tpu_torch.data.reader import SpeechCorpusReader
@@ -1190,6 +1208,10 @@ def conv0_device_steps(data_dir, weights, card):
     def one():
         box[0], box[1] = train_step(box[0], box[1], batch)
 
+    def layer0():
+        with torch.no_grad():
+            model.conv_0(batch.features.transpose(1, 2), model.compute_dtype)
+
     times = {"default": [], "conv0": []}
     try:
         for path in ("default", "conv0", "conv0", "default"):
@@ -1200,13 +1222,23 @@ def conv0_device_steps(data_dir, weights, card):
             model.train()
             t = time_ms(one, iters=5, warmup=1)
             model.eval()
-            e = time_ms(lambda: eval_step(batch), iters=10)
-            times[path].append((t, e))
+            e = time_ms(lambda: eval_step(batch), iters=20)
+            c = time_ms(layer0, iters=20)
+            times[path].append((t, e, c))
     finally:
         os.environ.pop(conv0.ENV_VAR, None)
-    print("device step times B=64 T=%d bf16 (CUDA events; train ms, eval ms; in "
-          "turns default, conv0, conv0, default): default %r, conv0 %r; on %s"
+    print("device step times B=64 T=%d bf16 (CUDA events; train ms, eval ms, conv_0 "
+          "layer forward ms; in turns default, conv0, conv0, default): default %r, "
+          "conv0 %r; on %s"
           % (batch.features.shape[1], times["default"], times["conv0"], card))
+    for i, label in enumerate(("train step", "eval step", "conv_0 layer forward")):
+        default = [t[i] for t in times["default"]]
+        kernel = [t[i] for t in times["conv0"]]
+        faster = max(kernel) < min(default)
+        print(f"{label}: the conv0 path is "
+              + ("faster than" if faster else "not faster than (ranges overlap or it is slower)")
+              + f" the default path: conv0 {min(kernel)!r}-{max(kernel)!r} ms, default "
+              f"{min(default)!r}-{max(default)!r} ms")
     return times
 
 
@@ -1354,8 +1386,12 @@ def main() -> int:
     for k in kernels:
         with open(cuda_build.log_path(k.name)) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(part in line for part in (
+                        "entry function", "registers", "spill", "Performance Loss")):
                     print(f"ptxas {k.name}: {line.strip()}")
+    print("conv0 dynamic shared memory a CTA: bf16 kernel %d bytes, float32 kernel %d "
+          "bytes" % (conv0_cuda.CONV0.lib.conv0_smem_bytes(1),
+                     conv0_cuda.CONV0.lib.conv0_smem_bytes(0)))
 
     # 2. the alpha kernel against its plain version
     train_inputs = ctc_inputs(
@@ -1382,12 +1418,15 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     conv0_main = check_conv0("main shape", 64, 1024, 128, 250, bf16, device)
     check_conv0("main shape", 64, 1024, 128, 250, f32, device)
-    check_conv0("largest bucket", 8, 4352, 128, 250, bf16, device)
+    conv0_largest = check_conv0("largest bucket", 8, 4352, 128, 250, bf16, device)
     for name, B, T, I, O in (("T=48", 2, 48, 128, 250), ("T=50", 2, 50, 128, 250),
-                             ("B=1", 1, 1024, 128, 250), ("O=29", 2, 256, 128, 29),
-                             ("I=64", 2, 256, 64, 250)):
+                             ("T=1000", 2, 1000, 128, 250), ("B=1", 1, 1024, 128, 250),
+                             ("O=16", 2, 256, 128, 16), ("O=29", 2, 256, 128, 29),
+                             ("O=300", 2, 256, 128, 300), ("I=64", 2, 256, 64, 250),
+                             ("I=256", 2, 256, 256, 250)):
         for dtype in (bf16, f32):
             check_conv0(name, B, T, I, O, dtype, device, time_it=False)
+    check_conv0_bit_equal(device)
     check_conv0_grads(device)
     print("kernel launches in the comparisons: "
           + str({k.name: k.launches for k in kernels}))
@@ -1425,6 +1464,9 @@ def main() -> int:
         "conv0", "speecht_tpu_torch/csrc/conv0.cu",
         "speecht_tpu/ops/conv0_pallas.py:84", conv0_train["conv0"], conv0_main,
     )
+    conv0_entry["largest_bucket"] = {
+        key: conv0_largest[key] for key in ("shape", "ms", "library_ms", "bound_ms")
+    }
     conv0_entry["launches_by_path"] = {
         "evaluate": conv0_eval["conv0"], "train": conv0_train["conv0"],
         "evaluate (default path)": eval_launches["conv0"],

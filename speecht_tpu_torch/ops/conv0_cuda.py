@@ -41,6 +41,7 @@ class Conv0Kernel(cuda_build.KernelLibrary):
     signatures = (
         ("conv0_forward", [_P] * 5 + [_I] * 6 + [_P], _I),
         ("conv0_scratch_elements", [_I, _I], ctypes.c_size_t),
+        ("conv0_smem_bytes", [_I], ctypes.c_size_t),
         ("conv0_error_string", [_I], ctypes.c_char_p),
     )
 
