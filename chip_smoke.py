@@ -23,9 +23,10 @@ drives the port's main path through its normal entry point, and fails
    autograd Function against autograd through the plain forward scan
    (``ctc_loss_autodiff``), and the gradients of the Function and of that
    autograd in float32 each against it in float64, to a bound per entry
-   (see ``f64_witness``); times beside the plain version, the
+   (see ``f64_witness``); two calls bit-equal (the class scatter has a
+   fixed order); times beside the plain version, the
    bound and ``F.ctc_loss`` (its backward alone, and forward+backward
-   against alpha+beta).
+   against alpha+beta); the kernel's shared memory at three widths.
 2c. The conv0 kernel against ``conv0_plain`` on the card:
    the main shape (B=64, T=1024, I=128, O=250) in bf16 and float32, the
    largest bucket (B=8, T=4352) and edge shapes of the bf16 kernel's
@@ -50,7 +51,10 @@ drives the port's main path through its normal entry point, and fails
    step, the train step's device time on one resident batch and its
    share of the card's dense bf16 peak, where that time goes (stages and
    each layer's backward by CUDA events, kernels by torch.profiler, and
-   the step with ``cudnn.benchmark`` on for comparison).
+   the step with ``cudnn.benchmark`` on for comparison), and a report (not
+   a check) of whether two train steps from the same state leave
+   bit-equal parameters, with cuDNN's default algorithms and with
+   ``cudnn.deterministic``.
 3c. The conv0 path, with SPEECHT_PALLAS_CONV0=1 for this phase only:
    ``train --spec-augment --verbose-summaries --profile-steps 2:4`` (8
    steps from the phase-3 weights), then ``evaluate`` restoring step 8;
@@ -102,8 +106,8 @@ CTC_RTOL, CTC_ATOL = 1e-4, 1e-3
 CTC_OPS_PER_STATE_FRAME = 14
 
 # CTC beta kernel vs the plain version on the same alpha history: the
-# same float32 recursion, but the kernel adds the posteriors onto their
-# classes with float atomics in another order than the plain scatter
+# same float32 recursion, but the kernel sums the posteriors onto their
+# classes in another (fixed) order than the plain scatter
 BETA_RTOL, BETA_ATOL = 1e-4, 1e-5
 # the autograd Function (posterior form, float32) and float32 autograd
 # through the plain forward scan, each against that autograd in float64.
@@ -380,10 +384,14 @@ def check_beta(name, inputs, g, device, time_it=True):
         ) * g[:, None, None]
 
     got = run_kernel()
+    again = run_kernel()
     want = run_plain()
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=BETA_RTOL, atol=BETA_ATOL))
+    bit_equal = bool(torch.equal(got, again))
+    print(f"ctc_beta {name}: two calls bit-equal: {bit_equal}")
+    check(bit_equal, f"ctc_beta {name}: two calls on the same inputs differ")
     check(bool(torch.isfinite(got).all()), f"ctc_beta {name}: non-finite dlogits")
     mask = torch.arange(T, device=device)[None, :] >= logit_lengths[:, None]
     check(not bool(got[mask].any()), f"ctc_beta {name}: frames past the length not 0")
@@ -1046,6 +1054,28 @@ def train_step_device(data_dir, weights, card):
         torch.backends.cudnn.benchmark = False
     print(f"train step (device) with torch.backends.cudnn.benchmark = True: "
           f"{bench_ms!r} ms (default: {ms!r} ms); on {card}")
+
+    # a report, not a check: cuDNN's default algorithms need not be
+    # deterministic, while the CTC kernels are
+    def step_from_start():
+        model.load_state_dict(load_weight_dir(weights, model))
+        fresh = create_train_state(dict(model.named_parameters()), tx, 1e-4)
+        fresh, _ = step(fresh, tstep.init_metrics_acc(torch.device("cuda")), batch)
+        return {k: v.detach().clone() for k, v in fresh.params.items()}
+
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            first, second = step_from_start(), step_from_start()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        differ = [k for k in first if not torch.equal(first[k], second[k])]
+        worst = max((float((first[k] - second[k]).abs().max()) for k in differ),
+                    default=0.0)
+        print(f"train step (device), torch.backends.cudnn.deterministic = "
+              f"{deterministic}: two steps from the same state leave bit-equal "
+              f"parameters: {not differ} ({len(differ)} of {len(first)} tensors "
+              f"differ, max abs diff {worst!r}: {differ[:6]})")
     flop = 3 * FORWARD_FLOP_PER_UTT * MAIN_BATCH
     share = flop / (ms * 1e-3) / PEAK_BF16_OPS_PER_S
     print(
@@ -1392,6 +1422,11 @@ def main() -> int:
     print("conv0 dynamic shared memory a CTA: bf16 kernel %d bytes, float32 kernel %d "
           "bytes" % (conv0_cuda.CONV0.lib.conv0_smem_bytes(1),
                      conv0_cuda.CONV0.lib.conv0_smem_bytes(0)))
+    beta_lib = ctc_cuda.CTC_BETA.lib
+    most = (beta_lib.ctc_beta_max_states() - 1) // 2
+    print("ctc_beta dynamic shared memory a CTA: " + ", ".join(
+        f"L={L} {beta_lib.ctc_beta_smem_bytes(L, 29)} bytes"
+        for L in (256, 1088, most)))
 
     # 2. the alpha kernel against its plain version
     train_inputs = ctc_inputs(
@@ -1410,8 +1445,8 @@ def main() -> int:
         "train shape", train_inputs,
         rng.uniform(0.5, 1.5, 64).astype(np.float32), device,
     )
-    check_beta("largest bucket", largest,
-               rng.uniform(0.5, 1.5, 8).astype(np.float32), device)
+    beta_largest = check_beta("largest bucket", largest,
+                              rng.uniform(0.5, 1.5, 8).astype(np.float32), device)
     check_beta("edge rows", edge_inputs(), edge_grad(7), device, time_it=False)
 
     # 2c. the conv0 kernel against its plain version
@@ -1459,6 +1494,9 @@ def main() -> int:
     )
     beta_entry["launches_by_path"] = {
         "evaluate": eval_launches["ctc_beta"], "train": train_launches["ctc_beta"],
+    }
+    beta_entry["largest_bucket"] = {
+        key: beta_largest[key] for key in ("shape", "ms", "library_ms", "bound_ms")
     }
     conv0_entry = kernel_entry(
         "conv0", "speecht_tpu_torch/csrc/conv0.cu",

@@ -7,8 +7,11 @@ and the port only (no JAX), so it also runs on a machine without JAX:
 
 Tolerance rtol 1e-5 / atol 1e-4 for losses and alpha: both sides are the
 same float32 recursion over at most 101 frames. dlogits rtol 1e-4 / atol
-1e-5: the same recursion, but the kernel adds the posteriors onto their
-classes with float atomics, in another order than the plain scatter.
+1e-5: the same recursion, but the kernel sums the posteriors onto their
+classes in another order than the plain scatter (blank states by lane,
+then a butterfly across the warp; label states by per-class lists), and
+folds the log-sum-exp's largest term as exactly 1. That order is fixed,
+so two calls of the beta kernel on the same inputs are bit-equal.
 """
 
 import numpy as np
@@ -128,3 +131,103 @@ def test_no_history_without_a_gradient(cuda_device):
     assert (ctc_cuda.CTC_ALPHA.launches, ctc_cuda.CTC_BETA.launches) == (
         before[0] + 1, before[1]
     )
+
+
+def _beta_inputs(seed, B, T, L, label_lengths, logit_lengths=None):
+    """Log-probs, labels of the given lengths and the alpha history on the
+    card, as the beta kernel takes them."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(B, T, vocabulary.NUM_CLASSES).astype(np.float32) * 2.0
+    label_lengths = np.asarray(label_lengths, dtype=np.int32)
+    labels = np.full((B, L), vocabulary.PAD_ID, dtype=np.int32)
+    for b in range(B):
+        labels[b, : label_lengths[b]] = rng.randint(0, 28, size=label_lengths[b])
+    if logit_lengths is None:
+        logit_lengths = [T] * B
+    logit_lengths = np.asarray(logit_lengths, dtype=np.int32)
+    dev = torch.device("cuda")
+    logits, logit_lengths, labels, label_lengths = (
+        torch.from_numpy(np.asarray(a)).to(dev)
+        for a in (logits, logit_lengths, labels, label_lengths)
+    )
+    logp = torch.log_softmax(logits, dim=-1).contiguous()
+    alpha = torch.empty(T, B, 2 * L + 1, device=dev)
+    loss = ctc_cuda.CTC_ALPHA(logp, logit_lengths, labels, label_lengths, alpha)
+    g = torch.linspace(0.5, 1.5, B, device=dev)
+    return logp, logit_lengths, labels, label_lengths, alpha, loss, g
+
+
+def _beta_plain(logp, logit_lengths, labels, label_lengths, alpha, loss, g):
+    ext = ctc._extend_labels(labels, vocabulary.BLANK_ID)
+    allow = ctc._transition_masks(ext, vocabulary.BLANK_ID)
+    return ctc._posterior_grad(
+        logp, logit_lengths, ext, allow, label_lengths, alpha, -loss
+    ) * g[:, None, None]
+
+
+# label widths at the edges of the kernel's state layout: a row of 2L+1
+# states runs on W recursion warps of 32 lanes with K states a lane, K
+# the smallest of 2, 4, 6, 8, 12, 16 with 8 * 32 * K >= 2L+1; so 2L+1 =
+# 63 / 65 (one warp / two at K=2), 511 / 513 (K=2 on 8 warps / K=4 on
+# 5), 1023 / 1025 (K=4 / K=6), and the largest bucket's L=1088 (K=12 on
+# 6 warps)
+EDGE_LABELS = [1, 31, 32, 255, 256, 511, 512, 1088]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", EDGE_LABELS)
+def test_beta_kernel_state_layout_edges(L, cuda_device):
+    """Every row at the label width L, and one row of half of it."""
+    T = 2 * L + 40
+    inputs = _beta_inputs(L, 2, T, L, [L, L // 2], [T, T - 7])
+    got = ctc_cuda.CTC_BETA(*inputs)
+    want = _beta_plain(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert not bool(got[1, T - 7:].any())
+
+
+@pytest.mark.cuda
+def test_beta_kernel_largest_states(cuda_device):
+    """The most states one block takes, and B = 1."""
+    L = (ctc_cuda.CTC_BETA.lib.ctc_beta_max_states() - 1) // 2
+    T = 2 * L + 8
+    inputs = _beta_inputs(3, 1, T, L, [L])
+    got = ctc_cuda.CTC_BETA(*inputs)
+    want = _beta_plain(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.cuda
+def test_beta_kernel_all_labels_empty(cuda_device):
+    inputs = _beta_inputs(4, 3, 50, 6, [0, 0, 0], [50, 17, 1])
+    got = ctc_cuda.CTC_BETA(*inputs)
+    want = _beta_plain(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.cuda
+def test_beta_kernel_every_width_fits(cuda_device):
+    """Every label width up to the most states fits in shared memory."""
+    lib = ctc_cuda.CTC_BETA.lib
+    widths = range((lib.ctc_beta_max_states() - 1) // 2 + 1)
+    assert max(lib.ctc_beta_smem_bytes(L, vocabulary.NUM_CLASSES) for L in widths) <= (
+        ctc_cuda.MAX_SMEM_BYTES
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ragged", "multi-warp"])
+def test_beta_kernel_two_calls_bit_equal(shape, cuda_device):
+    if shape == "ragged":
+        inputs = _beta_inputs(5, 6, 101, 12, [12, 0, 7, 3, 12, 9],
+                              [101, 60, 0, 1, 88, 101])
+    else:
+        inputs = _beta_inputs(6, 4, 2176, 1088, [1088, 700, 300, 1000],
+                              [2176, 1600, 1500, 2100])
+    first = ctc_cuda.CTC_BETA(*inputs)
+    second = ctc_cuda.CTC_BETA(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
