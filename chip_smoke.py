@@ -11,10 +11,16 @@ drives the port's main path through its normal entry point, and fails
 1. Environment: card name and power limit (``nvidia-smi``), torch and
    CUDA versions, kernel build time (all sources compiled in parallel).
 2. Each kernel against its plain PyTorch version on the card: the CTC
-   alpha kernel at the evaluate shape (B=64, T=512 logit frames, L=256),
-   at the largest corpus bucket (T=2176, L=1088) and on edge rows (empty
-   label, infeasible row, logit length 0, ragged lengths), with its time,
-   the plain version's, the ``F.ctc_loss`` yardstick's, and the bound.
+   alpha kernel, without the history (evaluate's variant) and with it
+   (train's), at the evaluate/train shape (B=64, T=512 logit frames,
+   L=256), at the largest corpus bucket (T=2176, L=1088), on edge rows
+   (empty label, infeasible row, logit length 0, ragged lengths), at one
+   width past 4096 states and at the widest the first version of the
+   kernel took (S=14295):
+   losses and the whole history, the two variants' losses bit-equal, two
+   calls bit-equal; the times of both variants beside the plain version's,
+   the ``F.ctc_loss`` yardstick's and each variant's bound, and the
+   history's cost on rows that all run 513 states.
 2b. The CTC beta kernel (dlogits) against the plain ``_posterior_grad``
    times g on the same inputs and alpha history, at the train shape
    (B=64, T=512, L=256), the largest bucket and edge rows (empty label,
@@ -241,20 +247,27 @@ def edge_grad(B):
     return g
 
 
-def ctc_bound_ms(logit_lengths, label_lengths, L, C=29):
+def ctc_bound_ms(logit_lengths, label_lengths, L, C=29, history_frames=0):
     """Least time for this data: each needed log-prob row read once, the
-    labels and lengths read once, the losses written once; 14 float32
-    operations per needed state and frame. Returns (ms, bound_by)."""
+    labels and lengths read once, the losses written once, and with
+    ``history_frames`` = T the [T, B, 2L+1] history written once; 14
+    float32 operations per needed state and frame. Returns (ms, bound_by)."""
     frames = np.maximum(logit_lengths.astype(np.int64), 1)
     states = 2 * label_lengths.astype(np.int64) + 1
     B = len(frames)
-    nbytes = 4 * (int(frames.sum()) * C + B * L + 2 * B + B)
+    nbytes = 4 * (int(frames.sum()) * C + B * L + 2 * B + B
+                  + history_frames * B * (2 * L + 1))
     ops = CTC_OPS_PER_STATE_FRAME * int((frames * states).sum())
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_ctc(name, inputs, device, time_it=True, history=False):
+    """The alpha kernel without the history (evaluate's variant) and, with
+    ``history``, with it (train's) against the plain version: the losses,
+    the whole history, the no-history loss bit-equal to the history
+    variant's, and two calls of each bit-equal; then the times of both
+    beside the plain version, ``F.ctc_loss``'s forward and the bounds."""
     from speecht_tpu_torch import vocabulary
     from speecht_tpu_torch.ops import ctc, ctc_cuda
 
@@ -264,6 +277,7 @@ def check_ctc(name, inputs, device, time_it=True, history=False):
     logp = torch.log_softmax(logits, dim=-1).contiguous()
     B, T, C = logp.shape
     L = labels.shape[1]
+    S = 2 * L + 1
     kernel = ctc_cuda.CTC_ALPHA
 
     def run_kernel(alpha_out=None):
@@ -273,6 +287,7 @@ def check_ctc(name, inputs, device, time_it=True, history=False):
         return ctc.ctc_loss_log_probs(logp, logit_lengths, labels, label_lengths)
 
     got = run_kernel()
+    again = run_kernel()
     torch.cuda.synchronize()
     want = run_plain()
     torch.cuda.synchronize()
@@ -281,9 +296,12 @@ def check_ctc(name, inputs, device, time_it=True, history=False):
     max_rel = float((diff / want.abs().clamp(min=1e-30)).max())
     ok = bool(torch.allclose(got, want, rtol=CTC_RTOL, atol=CTC_ATOL))
     check(bool(torch.isfinite(got).all()), f"ctc_alpha {name}: non-finite loss")
+    bit_equal = bool(torch.equal(got, again))
     if history:
-        alpha = torch.empty(T, B, 2 * L + 1, device=device)
-        run_kernel(alpha)
+        alpha = torch.full((T, B, S), float("nan"), device=device)
+        alpha_again = torch.full_like(alpha, float("nan"))
+        hist_loss = run_kernel(alpha)
+        hist_loss_again = run_kernel(alpha_again)
         torch.cuda.synchronize()
         ext = ctc._extend_labels(labels, vocabulary.BLANK_ID)
         alphas, _ = ctc.ctc_alpha(
@@ -292,9 +310,17 @@ def check_ctc(name, inputs, device, time_it=True, history=False):
         )
         hist_err = float((alpha - alphas).abs().max())
         ok = ok and bool(torch.allclose(alpha, alphas, rtol=CTC_RTOL, atol=CTC_ATOL))
-        print(f"ctc_alpha {name}: alpha history max abs err {hist_err!r}")
+        bit_equal = (bit_equal and bool(torch.equal(alpha, alpha_again))
+                     and bool(torch.equal(hist_loss, hist_loss_again)))
+        same_loss = bool(torch.equal(got, hist_loss))
+        print(f"ctc_alpha {name}: alpha history max abs err {hist_err!r}; the "
+              f"no-history loss bit-equal to the history variant's: {same_loss}")
+        check(same_loss, f"ctc_alpha {name}: the two variants' losses differ")
+        del alphas
+    print(f"ctc_alpha {name}: two calls bit-equal: {bit_equal}")
+    check(bit_equal, f"ctc_alpha {name}: two calls on the same inputs differ")
     result = {
-        "shape": f"B={B} T={T} L={L} S={2 * L + 1}",
+        "shape": f"B={B} T={T} L={L} S={S}",
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
         "ok": ok,
@@ -334,7 +360,41 @@ def check_ctc(name, inputs, device, time_it=True, history=False):
         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_by=bound_by,
     )
+    if history:
+        hist_ms = time_ms(lambda: run_kernel(alpha), iters=20)
+        hist_bound, hist_by = ctc_bound_ms(inputs[1], inputs[3], L, C, history_frames=T)
+        print(f"ctc_alpha {name} with the history: kernel {hist_ms!r} ms, bound "
+              f"{hist_bound!r} ms ({hist_by}); without it {ms!r} ms; F.ctc_loss "
+              f"forward {library_ms!r} ms")
+        result["history"] = {
+            "shape": result["shape"], "ms": hist_ms, "bound_ms": hist_bound,
+            "bound_by": hist_by, "library_ms": library_ms,
+        }
     return result
+
+
+# S = 14295: the widest the first, shared-memory version of the alpha
+# kernel took (16 S + 3712 bytes of the card's 227 KB)
+FIRST_KERNEL_WIDEST_LABELS = 7147
+
+
+def alpha_wide_rows(device):
+    """The history's cost at the train shape with every row at full width
+    (both variants then run all 513 states), and rows wider than 4096
+    states: one width past it and the widest the first version took (K=32
+    on 14 warps)."""
+    full = ctc_inputs(3, B=64, T=512, L=256, label_range=(256, 257),
+                      frame_range=(512, 513))
+    r = check_ctc("full-width rows", full, device, history=True)
+    print(f"ctc_alpha history cost at B=64 T=512 S=513, every row at 513 states: "
+          f"{r['history']['ms'] - r['ms']!r} ms ({r['history']['ms']!r} with, "
+          f"{r['ms']!r} without)")
+    for name, B, L, T, seed in (
+            ("S=4201", 2, 2100, 4300, 4),
+            ("widest of the first kernel", 1, FIRST_KERNEL_WIDEST_LABELS, 14400, 5)):
+        check_ctc(name, ctc_inputs(seed, B=B, T=T, L=L, label_range=(L - 600, L + 1),
+                                   frame_range=(T - 100, T + 1)),
+                  device, time_it=False, history=True)
 
 
 def beta_bound_ms(logit_lengths, label_lengths, T, C=29):
@@ -1427,6 +1487,11 @@ def main() -> int:
     print("ctc_beta dynamic shared memory a CTA: " + ", ".join(
         f"L={L} {beta_lib.ctc_beta_smem_bytes(L, 29)} bytes"
         for L in (256, 1088, most)))
+    alpha_lib = ctc_cuda.CTC_ALPHA.lib
+    most = (alpha_lib.ctc_alpha_max_states() - 1) // 2
+    print("ctc_alpha dynamic shared memory a CTA (with the history ring): " + ", ".join(
+        f"L={L} {alpha_lib.ctc_alpha_smem_bytes(L, 29)} bytes"
+        for L in (256, 1088, FIRST_KERNEL_WIDEST_LABELS, most)))
 
     # 2. the alpha kernel against its plain version
     train_inputs = ctc_inputs(
@@ -1435,9 +1500,10 @@ def main() -> int:
     largest = ctc_inputs(
         1, B=8, T=2176, L=1088, label_range=(300, 1001), frame_range=(1500, 2177)
     )
-    alpha_main = check_ctc("evaluate shape", train_inputs, device)
-    check_ctc("largest bucket", largest, device)
+    alpha_main = check_ctc("evaluate shape", train_inputs, device, history=True)
+    alpha_largest = check_ctc("largest bucket", largest, device, history=True)
     check_ctc("edge rows", edge_inputs(), device, time_it=False, history=True)
+    alpha_wide_rows(device)
 
     # 2b. the beta kernel against its plain version
     rng = np.random.RandomState(2)
@@ -1487,6 +1553,10 @@ def main() -> int:
     )
     alpha_entry["launches_by_path"] = {
         "evaluate": eval_launches["ctc_alpha"], "train": train_launches["ctc_alpha"],
+    }
+    alpha_entry["history"] = alpha_main["history"]
+    alpha_entry["largest_bucket"] = {
+        key: alpha_largest[key] for key in ("shape", "ms", "library_ms", "bound_ms", "history")
     }
     beta_entry = kernel_entry(
         "ctc_beta", "speecht_tpu_torch/csrc/ctc_beta.cu",

@@ -67,6 +67,14 @@ def _check_smem(name, smem, L):
         )
 
 
+def _check_states(name, S, L, most):
+    if S > most:
+        raise ValueError(
+            f"{name}: {S} CTC states (label width {L}) is more than one "
+            f"block takes ({most})"
+        )
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -77,6 +85,7 @@ class CtcAlphaKernel(cuda_build.KernelLibrary):
     signatures = (
         ("ctc_alpha_forward", [_P] * 6 + [_I] * 6 + [_P], _I),
         ("ctc_alpha_smem_bytes", [_I, _I], ctypes.c_size_t),
+        ("ctc_alpha_max_states", [], _I),
         ("ctc_alpha_error_string", [_I], ctypes.c_char_p),
     )
 
@@ -107,6 +116,7 @@ class CtcAlphaKernel(cuda_build.KernelLibrary):
         if alpha_out is not None:
             tensors.append(alpha_out)
         _check_placed(self.name, device, tensors)
+        _check_states(self.name, S, L, self.lib.ctc_alpha_max_states())
         _check_smem(self.name, self.lib.ctc_alpha_smem_bytes(L, C), L)
 
         loss = torch.empty(B, dtype=torch.float32, device=device)
@@ -169,11 +179,7 @@ class CtcBetaKernel(cuda_build.KernelLibrary):
             self.name, device,
             [log_probs, labels, logit_lengths, label_lengths, alpha, loss, grad],
         )
-        if S > self.lib.ctc_beta_max_states():
-            raise ValueError(
-                f"ctc_beta: {S} CTC states (label width {L}) is more than "
-                f"one block takes ({self.lib.ctc_beta_max_states()})"
-            )
+        _check_states(self.name, S, L, self.lib.ctc_beta_max_states())
         _check_smem(self.name, self.lib.ctc_beta_smem_bytes(L, C), L)
 
         dlogits = torch.empty(B, T, C, dtype=torch.float32, device=device)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers) into ``_build/lib<name>-<digest>.so`` inside
-the package, where ``<digest>`` hashes the source and the flags, so an
-edited source rebuilds and a built one is reused. :func:`build` starts
-one ``nvcc`` per missing library, all at once, and waits for them.
+the package, where ``<digest>`` hashes the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source rebuilds and a built one
+is reused. :func:`build` starts one ``nvcc`` per missing library, all at
+once, and waits for them.
 Nothing is built when a module is imported: the wrappers call
 :func:`load` at their first launch.
 """
@@ -43,8 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

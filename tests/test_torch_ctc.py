@@ -120,6 +120,37 @@ def test_alpha_history_and_masks_match_jax():
     )
 
 
+def _own_states_loss(log_probs, logit_lengths, labels, label_lengths):
+    """The plain recursion of each row alone on its own 2 ll + 1 states,
+    as the alpha kernel runs a row when it writes no history (3 states at
+    least: the plain recursion shifts by two)."""
+    losses = []
+    for b in range(log_probs.shape[0]):
+        own = max(int(label_lengths[b]), 1)
+        ext = ctc._extend_labels(labels[b : b + 1, :own], vocabulary.BLANK_ID)
+        allow = ctc._transition_masks(ext, vocabulary.BLANK_ID)
+        _alphas, last = ctc.ctc_alpha(
+            log_probs[b : b + 1], logit_lengths[b : b + 1], ext, allow
+        )
+        losses.append(-ctc._final_log_prob(last, label_lengths[b : b + 1]))
+    return torch.cat(losses)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_own_states_give_the_loss(name):
+    """alpha[t, s] depends on states <= s only, so running a row's own
+    states gives the loss of all S states bit for bit, and the JAX scan's
+    within the file's tolerance."""
+    args = _case(name)
+    logits, logit_lengths, labels, label_lengths = (torch.from_numpy(a) for a in args)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    got = _own_states_loss(log_probs, logit_lengths, labels, label_lengths)
+    want = ctc.ctc_loss_log_probs(log_probs, logit_lengths, labels, label_lengths)
+    assert torch.equal(got, want)
+    ref = np.asarray(jctc.ctc_loss(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     args = [torch.from_numpy(a) for a in _case("ragged")]
     before = ctc_cuda.CTC_ALPHA.launches

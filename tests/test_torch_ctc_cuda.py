@@ -6,7 +6,8 @@ and the port only (no JAX), so it also runs on a machine without JAX:
     python -m pytest tests/test_torch_ctc_cuda.py -m cuda -q
 
 Tolerance rtol 1e-5 / atol 1e-4 for losses and alpha: both sides are the
-same float32 recursion over at most 101 frames. dlogits rtol 1e-4 / atol
+same float32 recursion, which the alpha kernel rounds as the plain version
+does. dlogits rtol 1e-4 / atol
 1e-5: the same recursion, but the kernel sums the posteriors onto their
 classes in another order than the plain scatter (blank states by lane,
 then a butterfly across the warp; label states by per-class lists), and
@@ -133,9 +134,8 @@ def test_no_history_without_a_gradient(cuda_device):
     )
 
 
-def _beta_inputs(seed, B, T, L, label_lengths, logit_lengths=None):
-    """Log-probs, labels of the given lengths and the alpha history on the
-    card, as the beta kernel takes them."""
+def _alpha_inputs(seed, B, T, L, label_lengths, logit_lengths=None):
+    """Log-probs [B, T, C] and labels of the given lengths on the card."""
     rng = np.random.RandomState(seed)
     logits = rng.randn(B, T, vocabulary.NUM_CLASSES).astype(np.float32) * 2.0
     label_lengths = np.asarray(label_lengths, dtype=np.int32)
@@ -144,16 +144,24 @@ def _beta_inputs(seed, B, T, L, label_lengths, logit_lengths=None):
         labels[b, : label_lengths[b]] = rng.randint(0, 28, size=label_lengths[b])
     if logit_lengths is None:
         logit_lengths = [T] * B
-    logit_lengths = np.asarray(logit_lengths, dtype=np.int32)
     dev = torch.device("cuda")
     logits, logit_lengths, labels, label_lengths = (
         torch.from_numpy(np.asarray(a)).to(dev)
-        for a in (logits, logit_lengths, labels, label_lengths)
+        for a in (logits, np.asarray(logit_lengths, np.int32), labels, label_lengths)
     )
     logp = torch.log_softmax(logits, dim=-1).contiguous()
-    alpha = torch.empty(T, B, 2 * L + 1, device=dev)
+    return logp, logit_lengths, labels, label_lengths
+
+
+def _beta_inputs(seed, B, T, L, label_lengths, logit_lengths=None):
+    """Log-probs, labels of the given lengths and the alpha history on the
+    card, as the beta kernel takes them."""
+    logp, logit_lengths, labels, label_lengths = _alpha_inputs(
+        seed, B, T, L, label_lengths, logit_lengths
+    )
+    alpha = torch.empty(T, B, 2 * L + 1, device=logp.device)
     loss = ctc_cuda.CTC_ALPHA(logp, logit_lengths, labels, label_lengths, alpha)
-    g = torch.linspace(0.5, 1.5, B, device=dev)
+    g = torch.linspace(0.5, 1.5, B, device=logp.device)
     return logp, logit_lengths, labels, label_lengths, alpha, loss, g
 
 
@@ -231,3 +239,111 @@ def test_beta_kernel_two_calls_bit_equal(shape, cuda_device):
     second = ctc_cuda.CTC_BETA(*inputs)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _check_alpha_variants(logp, logit_lengths, labels, label_lengths):
+    """Both variants of the alpha kernel against the plain version: the
+    loss and the whole [T, B, S] history; the no-history loss bit-equal to
+    the history variant's; two calls of each bit-equal."""
+    B, T, _C = logp.shape
+    S = 2 * labels.shape[1] + 1
+    args = (logp, logit_lengths, labels, label_lengths)
+    want = ctc.ctc_loss_log_probs(*args)
+    ext = ctc._extend_labels(labels, vocabulary.BLANK_ID)
+    alphas, _ = ctc.ctc_alpha(
+        logp, logit_lengths, ext, ctc._transition_masks(ext, vocabulary.BLANK_ID)
+    )
+    loss = ctc_cuda.CTC_ALPHA(*args)
+    loss_again = ctc_cuda.CTC_ALPHA(*args)
+    hist = torch.full((T, B, S), float("nan"), device=logp.device)
+    hist_again = torch.full_like(hist, float("nan"))
+    hist_loss = ctc_cuda.CTC_ALPHA(*args, hist)
+    hist_loss_again = ctc_cuda.CTC_ALPHA(*args, hist_again)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, alphas, rtol=RTOL, atol=ATOL)
+    assert torch.equal(loss, hist_loss)
+    assert torch.equal(loss, loss_again)
+    assert torch.equal(hist_loss, hist_loss_again)
+    assert torch.equal(hist, hist_again)
+
+
+def _alpha_layout(n):
+    """(K, W) of a row of n states in the alpha kernel: W = ceil(n / 32K)
+    of at most 14 warps, K the one of the least ceil(W / 4) * K, ties to
+    the smaller K (csrc/ctc_alpha.cu, ctc_alpha_kernel)."""
+    best = None
+    for k in (2, 4, 6, 8, 12, 16, 24, 32):
+        w = -(-n // (32 * k))
+        if w <= 14 and (best is None or -(-w // 4) * k < best[0]):
+            best = (-(-w // 4) * k, k, w)
+    return best[1:]
+
+
+def _layout_edges():
+    """Label widths L whose 2L+1 states sit at both sides of every change
+    of the alpha kernel's (K, W) below 4096 states (with the history a row
+    runs all of them), then one width past 4095 and the widest the first,
+    shared-memory version of the kernel took (S = 14295: K=32 on 14
+    warps)."""
+    states = {3, 4095, 4097, 14295}
+    for s in range(5, 4096, 2):
+        if _alpha_layout(s) != _alpha_layout(s - 2):
+            states |= {s - 2, s}
+    return sorted((s - 1) // 2 for s in states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", _layout_edges())
+def test_alpha_kernel_state_layout_edges(L, cuda_device):
+    """A full-width row and one of half the width (its own, narrower
+    layout without the history), the second shorter than T."""
+    T = 2 * L + 40
+    _check_alpha_variants(*_alpha_inputs(L, 2, T, L, [L, L // 2], [T, T - 7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["B=1", "all_empty", "len_0", "short_rows", "neg_inf"])
+def test_alpha_kernel_edge_rows(name, cuda_device):
+    if name == "B=1":
+        inputs = _alpha_inputs(11, 1, 70, 20, [20])
+    elif name == "all_empty":
+        inputs = _alpha_inputs(12, 3, 50, 6, [0, 0, 0], [50, 17, 1])
+    elif name == "len_0":
+        inputs = _alpha_inputs(13, 3, 40, 8, [8, 0, 3], [0, 0, 40])
+    elif name == "short_rows":
+        inputs = _alpha_inputs(14, 4, 90, 30, [30, 12, 29, 1], [90, 61, 40, 2])
+    else:
+        # frame 3 of row 0 is -inf for every class: every alpha is -inf
+        # there, and at frame 4 each label state with a skip has all three
+        # terms below NEG_INF (the clamp of the max)
+        logp, *rest = _alpha_inputs(15, 2, 60, 10, [10, 7])
+        logp[0, 3] = float("-inf")
+        inputs = (logp, *rest)
+    _check_alpha_variants(*inputs)
+
+
+@pytest.mark.cuda
+def test_alpha_kernel_two_calls_bit_equal_multi_warp(cuda_device):
+    """The largest bucket's shape, ragged: rows on several warps each."""
+    _check_alpha_variants(*_alpha_inputs(
+        16, 4, 2176, 1088, [1088, 700, 300, 1000], [2176, 1600, 1500, 2100]
+    ))
+
+
+@pytest.mark.cuda
+def test_alpha_kernel_every_width_fits(cuda_device):
+    """Every label width the first version of the kernel took (S <=
+    14295) fits in the states one block takes and in shared memory; past
+    the most states the wrapper raises, naming the width."""
+    lib = ctc_cuda.CTC_ALPHA.lib
+    most = lib.ctc_alpha_max_states()
+    assert most >= 14295
+    widths = range((most - 1) // 2 + 1)
+    assert max(lib.ctc_alpha_smem_bytes(L, vocabulary.NUM_CLASSES) for L in widths) <= (
+        ctc_cuda.MAX_SMEM_BYTES
+    )
+    L = (most - 1) // 2 + 1
+    logp, logit_lengths, labels, label_lengths = _alpha_inputs(17, 1, 4, L, [1])
+    with pytest.raises(ValueError, match=f"label width {L}"):
+        ctc_cuda.CTC_ALPHA(logp, logit_lengths, labels, label_lengths)
