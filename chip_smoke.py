@@ -9,7 +9,9 @@ drives the port's main path through its normal entry point, and fails
 (non-zero exit, no result line) if anything is wrong. Phases:
 
 1. Environment: card name and power limit (``nvidia-smi``), torch and
-   CUDA versions, kernel build time (all sources compiled in parallel).
+   CUDA versions, kernel build time (all sources compiled in parallel)
+   and the build time of the port's host library (``g++``: the beam
+   search and the n-gram LM), built beside them.
 2. Each kernel against its plain PyTorch version on the card: the CTC
    alpha kernel, without the history (evaluate's variant) and with it
    (train's), at the evaluate/train shape (B=64, T=512 logit frames,
@@ -69,12 +71,35 @@ drives the port's main path through its normal entry point, and fails
    and activation summaries in the event file, a profiler trace; ms per
    step and per batch beside the default path's, and the device step
    times of both paths in turns.
+3d. The LM path: ``CLI(["evaluate", "--language-model", LM_DIR, ...]).run()``
+   on the phase-3 corpus, B=64, beam width 100 and top-k 8 (JAX's
+   defaults), with a synthetic order-3 ARPA LM written from a seed (4000
+   words, about 10^5 n-grams) and a vocabulary file, and the phase-3
+   weights with the last layer's blank bias raised, calibrated on one
+   batch so that the blank collapse keeps 20-30% of the frames (checked
+   within 10-40%; conv_0's filters first take a gain that spreads the
+   random weights' logits from frame to frame, see ``lm_weights_for``);
+   launch counts reset just before and read just after (``ctc_alpha``
+   once per batch, ``ctc_beta`` and conv0 not at all);
+   ms per batch and utterances/s, then the LM load, the device part
+   (forward, CTC alpha, collapse; CUDA events), the readback and the
+   host beam of one batch, each alone, with ``os.cpu_count()``.
+3e. ``search --generations 4 --step-count 1`` on a synthetic dev split of
+   64 utterances with the same LM, from a port checkpoint of the 3d
+   weights: five candidates scored and sorted, ``ctc_alpha`` launched once
+   for the one dev batch; ms per candidate.
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
    B=8, same weights and batch: loss, grad norm and updated parameters.
 4c. Phase 4 with SPEECHT_PALLAS_CONV0=1: the conv0 kernel (float32) on
    the card against ``conv0_plain`` on the CPU.
+4d. One batch (B=8) through the beam decoder's device part on the card and
+   on the CPU, float32 with TF32 off: the loss (to the CTC tolerance), the
+   collapsed lengths (equal) and the kept log-probs (to 1e-4 of each
+   value plus 1e-4); how many rows the host beam decodes alike on the
+   two sides is reported, not checked (a near tie may flip on a 1e-6
+   difference in the emissions).
 5. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1332,6 +1357,339 @@ def conv0_device_steps(data_dir, weights, card):
     return times
 
 
+# -- phases 3d and 3e: the LM-fused host beam ----------------------------------
+
+# the synthetic LM: order 3, a few thousand words and about 10^5 n-grams,
+# so the beam's lookups do not all hit the same few cache lines
+LM_WORDS, LM_BIGRAMS, LM_TRIGRAMS = 4000, 48000, 48000
+LM_LETTERS = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+# share of the logit frames the blank collapse keeps, as a trained
+# model's emissions keep them: the calibration aims at the middle
+LM_KEEP_RANGE, LM_KEEP_AIM = (0.10, 0.40), (0.20, 0.30)
+# the LM weights' logits, spread from frame to frame (standard deviation
+# per class), as a trained model's peaky emissions spread
+LM_LOGIT_STD = 3.0
+LM_STEPS = 4
+SEARCH_GENERATIONS = 4
+# phase 4d: the collapsed log-probs, card vs CPU in float32, each entry to
+# 1e-4 of itself plus 1e-4: 11 conv layers summed in another order leave
+# an error relative to the logits, and log-probs of unlikely classes
+# reach -50 on these weights
+BEAM_LOGP_RTOL, BEAM_LOGP_ATOL = 1e-4, 1e-4
+
+
+def write_lm(root, seed=0):
+    """A synthetic order-3 ARPA LM from a numpy seed and its vocabulary
+    file (every other word, so the valid-word bonus tells words apart).
+    Returns (directory, number of n-grams)."""
+    rng = np.random.RandomState(seed)
+    words = set()
+    while len(words) < LM_WORDS:
+        words.add("".join(rng.choice(LM_LETTERS, size=rng.randint(2, 8))))
+    words = sorted(words)
+
+    def tuples(count, width):
+        ids = rng.randint(0, len(words), size=(2 * count, width))
+        _, first = np.unique(ids, axis=0, return_index=True)
+        return ids[np.sort(first)][:count]
+
+    bi, tri = tuples(LM_BIGRAMS, 2), tuples(LM_TRIGRAMS, 3)
+    lines = ["\\data\\", f"ngram 1={len(words) + 3}", f"ngram 2={len(bi)}",
+             f"ngram 3={len(tri)}", "", "\\1-grams:",
+             "-3.5\t<unk>", "-2.0\t<s>\t-0.4", "-2.1\t</s>"]
+    lines += [f"{p:.4f}\t{w}\t{b:.4f}" for w, p, b in zip(
+        words, -1.5 - 3 * rng.rand(len(words)), -0.1 - 0.4 * rng.rand(len(words)))]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{p:.4f}\t{words[i]} {words[j]}\t{b:.4f}" for (i, j), p, b in zip(
+        bi, -0.5 - 3 * rng.rand(len(bi)), -0.1 - 0.3 * rng.rand(len(bi)))]
+    lines += ["", "\\3-grams:"]
+    lines += [f"{p:.4f}\t{words[i]} {words[j]} {words[k]}" for (i, j, k), p in zip(
+        tri, -0.3 - 3 * rng.rand(len(tri)))]
+    lines += ["", "\\end\\", ""]
+    d = os.path.join(root, "lm")
+    os.makedirs(d)
+    with open(os.path.join(d, "model.arpa"), "w") as f:
+        f.write("\n".join(lines))
+    with open(os.path.join(d, "vocabulary"), "w") as f:
+        f.write("\n".join(words[::2]) + "\n")
+    return d, len(words) + 3 + len(bi) + len(tri)
+
+
+def lm_model(weights, device, compute_dtype="bfloat16"):
+    from speecht_tpu_torch.data.features import feature_size
+    from speecht_tpu_torch.execution import build_model
+    from speecht_tpu_torch.weights import load_weight_dir
+
+    model = build_model(
+        feature_size("power"), types.SimpleNamespace(compute_dtype=compute_dtype)
+    )
+    model.load_state_dict(load_weight_dir(weights, model))
+    return model.to(device).eval()
+
+
+def one_batch(data_dir, split="test", n=MAIN_BATCH):
+    from speecht_tpu_torch.data.pipeline import build_batch
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    return build_batch(list(SpeechCorpusReader(data_dir).load_samples(
+        split, feature_type="power", seed=0, limit_count=n
+    )))
+
+
+def kept_share(lengths, seq_lengths):
+    from speecht_tpu_torch.models.wav2letter import output_length
+
+    frames = output_length(torch.as_tensor(seq_lengths)).sum()
+    return float(torch.as_tensor(lengths).sum() / frames)
+
+
+def lm_weights_for(work, data_dir, weights, device=torch.device("cuda")):
+    """The phase-3 weights made to emit like a trained CTC model, written
+    as a new weight directory. The random weights' logits barely move
+    from frame to frame (the biases dominate them: a per-frame spread of
+    about 0.006, below bfloat16's spacing), so no blank bias alone makes
+    the collapse keep a share of the frames. So conv_0's filters take a
+    gain (as ``bench.py`` scales its input) that spreads the logits by
+    about LM_LOGIT_STD, measured on one batch; then the last layer's blank
+    bias is moved until the collapse at 0.999 keeps 20-30% of that
+    batch's frames (bisection; the share falls as the bias rises).
+    Returns (the directory, the share kept)."""
+    import shutil
+
+    from speecht_tpu_torch import vocabulary
+    from speecht_tpu_torch.data.pipeline import to_device
+    from speecht_tpu_torch.models.wav2letter import output_length
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+
+    batch = one_batch(data_dir)
+    dev = to_device(batch, device)
+
+    def logit_spread(model):
+        with torch.inference_mode():
+            logits = model(dev.features).float()
+        frames = torch.arange(logits.shape[1], device=device)[None, :]
+        valid = logits[frames < output_length(dev.seq_lengths)[:, None]]
+        return float(valid.std(0).mean())
+
+    spread = logit_spread(lm_model(weights, device))
+    gain = np.float32(LM_LOGIT_STD / spread)
+    out = os.path.join(work, "lm_weights")
+    shutil.copytree(weights, out)
+    first = os.path.join(out, "convolution_layer_0", "filters:0.npy")
+    np.save(first, np.load(first) * gain)
+
+    model = lm_model(out, device)
+    new_spread = logit_spread(model)
+    bias = getattr(model, model.layer_names[-1]).bias
+    base = float(bias[vocabulary.BLANK_ID].detach())
+    decoder = BeamSearchDecoder(model, LanguageModelConfig(), num_threads=1)
+
+    def share(raise_by):
+        with torch.no_grad():
+            bias[vocabulary.BLANK_ID] = base + raise_by
+        _loss, _logp, lengths = decoder.device_part(dev)
+        return kept_share(lengths.cpu(), batch.seq_lengths)
+
+    lo, hi = -8.0, 8.0
+    while share(lo) < LM_KEEP_AIM[1] and lo > -1e4:
+        lo *= 2
+    while share(hi) > LM_KEEP_AIM[0] and hi < 1e4:
+        hi *= 2
+    raise_by = (lo + hi) / 2
+    kept = share(raise_by)
+    for _ in range(24):
+        if LM_KEEP_AIM[0] <= kept <= LM_KEEP_AIM[1]:
+            break
+        if kept > LM_KEEP_AIM[1]:
+            lo = raise_by
+        else:
+            hi = raise_by
+        raise_by = (lo + hi) / 2
+        kept = share(raise_by)
+    decoder.close()
+    check(LM_KEEP_RANGE[0] <= kept <= LM_KEEP_RANGE[1],
+          f"LM weights: the blank collapse keeps {kept!r} of the frames")
+    last = os.path.join(
+        out, f"convolution_layer_{len(model.layer_names) - 1}", "bias:0.npy"
+    )
+    values = np.load(last)
+    values[vocabulary.BLANK_ID] += np.float32(raise_by)
+    np.save(last, values)
+    print(f"LM path: the logits spread {spread!r} from frame to frame; with "
+          f"conv_0's filters times {float(gain)!r} they spread {new_spread!r}; "
+          f"blank bias raised by {raise_by!r}: the collapse at 0.999 keeps "
+          f"{kept!r} of one batch's frames (B={MAIN_BATCH})")
+    return out, kept
+
+
+@contextlib.contextmanager
+def candidate_durations():
+    """Host seconds of each candidate's scoring in ``search``."""
+    from speecht_tpu_torch.parameter_search import LanguageModelParameterSearch
+
+    durations = []
+    score = LanguageModelParameterSearch._score_candidate
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return score(*args, **kwargs)
+        finally:
+            durations.append(time.perf_counter() - t0)
+
+    LanguageModelParameterSearch._score_candidate = timed
+    try:
+        yield durations
+    finally:
+        LanguageModelParameterSearch._score_candidate = score
+
+
+def lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card):
+    """``evaluate --language-model`` at full width, B=64, beam width 100,
+    top-k 8; the launch counts set to 0 just before and read just after."""
+    n = MAIN_BATCH * LM_STEPS
+    argv = [
+        "evaluate", "--test", "--no-save",
+        "--data-dir", data_dir,
+        "--train-dir", os.path.join(work, "train"),
+        "--log-dir", os.path.join(work, "log"),
+        "--reference-weights", lm_weights,
+        "--batch-size", str(MAIN_BATCH),
+        "--language-model", lm_dir,
+        "--step-count", str(LM_STEPS),
+    ]
+    with batch_marks() as marks:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+
+    lines = out.splitlines()
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("validation average loss")]
+    n_expected = sum(ln.startswith("expected: ") for ln in lines)
+    print("LM path: " + " | ".join(lines[lines.index("Begin evaluation") + 1:][:3]))
+    print("LM path: " + " | ".join(lines[lines.index("Global statistics"):]))
+    print(f"LM path: losses {losses}; kernel launches {launches}")
+    check(stats.decodings_counter == n and n_expected == n,
+          f"evaluate --language-model tracked {stats.decodings_counter} of {n} utterances")
+    check(len(losses) == LM_STEPS and all(math.isfinite(x) and 0 < x < 1e29 for x in losses),
+          f"evaluate --language-model losses not well formed: {losses}")
+    check(0 <= stats.global_letter_error_rate < 100, "LM path: LER not well formed")
+    check("precise: LER" in out, "LM path: no precise statistics line")
+    check(launches["ctc_alpha"] == LM_STEPS,
+          f"evaluate --language-model launched ctc_alpha {launches['ctc_alpha']} "
+          f"times for {LM_STEPS} batches")
+    check(launches["ctc_beta"] == 0, "evaluate --language-model launched the backward kernel")
+    check(launches["conv0"] == 0, "evaluate --language-model launched conv0")
+    steady_ms = batch_period_ms(marks)
+    print(
+        f"LM path: evaluate --language-model B={MAIN_BATCH} x {LM_STEPS} batches "
+        f"(T=1024 frame bucket, beam width 100, top-k 8), whole run with set-up "
+        f"(LM load included): {wall / LM_STEPS * 1e3!r} ms/batch, {n / wall!r} utt/s; "
+        f"steady state: {steady_ms!r} ms/batch, {MAIN_BATCH / steady_ms * 1e3!r} "
+        f"utt/s; on {card}"
+    )
+    return launches, steady_ms
+
+
+def lm_breakdown(data_dir, lm_weights, lm_dir, n_grams, steady_ms, card,
+                 device=torch.device("cuda")):
+    """Where one LM batch's time goes: the LM load, the device part
+    (forward, CTC alpha, blank collapse; CUDA events), the readback of
+    the collapsed log-probs and the host beam, each alone."""
+    from speecht_tpu_torch.data.pipeline import to_device
+    from speecht_tpu_torch.execution import finish_readback, start_readback
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+
+    model = lm_model(lm_weights, device)
+    t0 = time.perf_counter()
+    decoder = BeamSearchDecoder(model, LanguageModelConfig(language_model=lm_dir))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        batch = one_batch(data_dir)
+        dev = to_device(batch, device)
+        device_ms = time_ms(lambda: decoder.device_part(dev), iters=10)
+        out = decoder.device_part(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _loss, logp, lengths = finish_readback(*start_readback(out))
+        readback_ms = (time.perf_counter() - t0) * 1e3
+        beam_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            decoder.decode_emissions(logp, lengths)
+            beam_ms.append((time.perf_counter() - t0) * 1e3)
+        threads = decoder.num_threads
+    finally:
+        decoder.close()
+    print(
+        f"LM breakdown B={MAIN_BATCH} T={batch.features.shape[1]}: LM load "
+        f"({n_grams} n-grams, ARPA) {load_ms!r} ms; device part (forward + CTC "
+        f"alpha + blank collapse) {device_ms!r} ms; readback of the collapsed "
+        f"log-probs ({logp.nbytes} bytes) {readback_ms!r} ms; host beam (width "
+        f"100, top-k 8, {threads} threads, os.cpu_count() {os.cpu_count()}) "
+        f"{beam_ms!r} ms (3 calls); frames kept {kept_share(lengths, batch.seq_lengths)!r}; "
+        f"steady-state batch period {steady_ms!r} ms, device busy "
+        f"{device_ms / steady_ms * 100:.1f}% of it; on {card}"
+    )
+
+
+def search_path(work, data_dir, lm_weights, lm_dir, kernels, card):
+    """``search --generations 4 --step-count 1`` on a synthetic dev split
+    (one batch of 64), from a port checkpoint of the LM weights."""
+    from speecht_tpu_torch.data.features import feature_size
+
+    write_corpus(work, MAIN_BATCH, feature_size("power"), seed=2, split="dev")
+    run_dir = os.path.join(work, "train", "lmsearch")
+    write_port_checkpoint(run_dir, lm_weights)
+    argv = [
+        "search",
+        "--data-dir", data_dir,
+        "--train-dir", os.path.join(work, "train"),
+        "--log-dir", os.path.join(work, "log"),
+        "--run-name", "lmsearch",
+        "--batch-size", str(MAIN_BATCH),
+        "--language-model", lm_dir,
+        "--generations", str(SEARCH_GENERATIONS),
+        "--step-count", "1",
+    ]
+    with candidate_durations() as durations:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        candidates, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+
+    lines = [ln for ln in out.splitlines() if ln.startswith("candidate-precise:")]
+    for ln in lines:
+        print(f"search: {ln}")
+    scores = [c.score for c in candidates]
+    check(len(lines) == SEARCH_GENERATIONS + 1 and len(durations) == len(lines),
+          f"search scored {len(lines)} candidates")
+    check(len(candidates) == SEARCH_GENERATIONS + 1 and scores == sorted(scores)
+          and all(math.isfinite(s) for s in scores),
+          f"search candidates not scored and sorted: {scores}")
+    check(all(c.stats.decodings_counter == MAIN_BATCH for c in candidates),
+          "search did not decode the dev batch for every candidate")
+    check(launches["ctc_alpha"] == 1,
+          f"search launched ctc_alpha {launches['ctc_alpha']} times for 1 dev batch")
+    check(launches["ctc_beta"] == 0 and launches["conv0"] == 0,
+          f"search launched other kernels: {launches}")
+    print(f"search: kernel launches {launches}; B={MAIN_BATCH}, "
+          f"{len(durations)} candidates: {float(np.mean(durations)) * 1e3!r} ms per "
+          f"candidate (host beam over the cached emissions; each "
+          f"{[d * 1e3 for d in durations]!r}); whole run with set-up "
+          f"{wall!r} s; on {card}")
+    return launches
+
+
 # -- phase 4: one batch, card vs CPU ----------------------------------------
 
 
@@ -1434,6 +1792,57 @@ def parity_train(data_dir, weights):
     check(param_err <= PARITY_PARAM_ATOL, "card and CPU updated parameters disagree")
 
 
+def parity_beam(data_dir, lm_weights, lm_dir, devices=("cuda", "cpu")):
+    """One batch through the beam decoder's device part on the card and
+    on the CPU (float32, TF32 off), then the host beam on each side's
+    emissions."""
+    from speecht_tpu_torch.data.pipeline import to_device
+    from speecht_tpu_torch.execution import finish_readback, start_readback
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = one_batch(data_dir, n=8)
+    outs = {}
+    for name in devices:
+        device = torch.device(name)
+        decoder = BeamSearchDecoder(
+            lm_model(lm_weights, device, "float32"),
+            LanguageModelConfig(language_model=lm_dir),
+        )
+        try:
+            loss, logp, lengths = finish_readback(*start_readback(
+                decoder.device_part(to_device(batch, device, "float32"))
+            ))
+            outs[name] = (float(loss), logp, lengths,
+                          *decoder.decode_emissions(logp, lengths))
+        finally:
+            decoder.close()
+    (lg, pg, ng, dg, mg), (lc, pc, nc, dc, mc) = (outs[name] for name in devices)
+    loss_err = abs(lg - lc)
+    print(f"parity beam: B=8 T={batch.features.shape[1]}, float32, TF32 off: "
+          f"loss cuda {lg!r} cpu {lc!r} abs diff {loss_err!r} (tolerance "
+          f"{CTC_ATOL} + {CTC_RTOL} x |loss|); collapsed lengths cuda "
+          f"{ng.tolist()} cpu {nc.tolist()}")
+    check(loss_err <= CTC_ATOL + CTC_RTOL * abs(lc), "beam parity: losses disagree")
+    check(np.array_equal(ng, nc), "beam parity: collapsed lengths disagree")
+    kept = [(pg[i, :n], pc[i, :n]) for i, n in enumerate(nc) if n]
+    logp_err = max((float(np.abs(g - c).max()) for g, c in kept), default=0.0)
+    logp_ratio = max((float((np.abs(g - c) / (BEAM_LOGP_ATOL + BEAM_LOGP_RTOL * np.abs(c))).max())
+                      for g, c in kept), default=0.0)
+    lowest = min((float(c.min()) for _g, c in kept), default=0.0)
+    same = sum(
+        int(mg[i] == mc[i] and np.array_equal(dg[i, :mg[i]], dc[i, :mc[i]]))
+        for i in range(len(mg))
+    )
+    print(f"parity beam: kept log-probs (down to {lowest!r}) max abs diff "
+          f"{logp_err!r}, at most {logp_ratio!r} of the tolerance {BEAM_LOGP_ATOL} + "
+          f"{BEAM_LOGP_RTOL} x |log-prob|; decoded rows equal {same}/{len(mg)} "
+          "(reported, not checked: a near tie in the beam may flip on a 1e-6 "
+          "difference)")
+    check(logp_ratio <= 1.0, "beam parity: kept log-probs disagree")
+
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -1457,6 +1866,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 2
+    import concurrent.futures
+
+    from speecht_tpu_torch import native
     from speecht_tpu_torch.ops import conv0, conv0_cuda, ctc_cuda, cuda_build
 
     kernels = list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
@@ -1471,8 +1883,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cuda_build.build([k.name for k in kernels])
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s for {[k.name for k in kernels]}")
+    # the host library (g++) builds beside the kernels (one nvcc each)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(native.build)
+        cuda_build.build([k.name for k in kernels])
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s for {[k.name for k in kernels]}")
+        host_lib = host_build.result()
+    print(f"host library build (g++, beam search and n-gram LM): "
+          f"{time.perf_counter() - t0:.1f} s from the start of the builds, "
+          f"{os.path.basename(host_lib)}")
     for k in kernels:
         with open(cuda_build.log_path(k.name)) as f:
             for line in f:
@@ -1542,9 +1961,15 @@ def main() -> int:
             work, data_dir, weights, kernels, card, steady_ms, train_ms
         )
         conv0_device_steps(data_dir, weights, card)
+        lm_dir, n_grams = write_lm(work)
+        lm_weights, _kept = lm_weights_for(work, data_dir, weights)
+        lm_launches, lm_ms = lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card)
+        lm_breakdown(data_dir, lm_weights, lm_dir, n_grams, lm_ms, card)
+        search_launches = search_path(work, data_dir, lm_weights, lm_dir, kernels, card)
         parity(data_dir, weights)
         parity_train(data_dir, weights)
         parity(data_dir, weights, conv0_path=True)
+        parity_beam(data_dir, lm_weights, lm_dir)
 
     # 5. kernels line, then the result line
     alpha_entry = kernel_entry(
@@ -1553,6 +1978,8 @@ def main() -> int:
     )
     alpha_entry["launches_by_path"] = {
         "evaluate": eval_launches["ctc_alpha"], "train": train_launches["ctc_alpha"],
+        "evaluate --language-model": lm_launches["ctc_alpha"],
+        "search": search_launches["ctc_alpha"],
     }
     alpha_entry["history"] = alpha_main["history"]
     alpha_entry["largest_bucket"] = {

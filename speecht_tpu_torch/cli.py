@@ -1,14 +1,15 @@
-"""Command line of the port: ``python -m speecht_tpu_torch {train,evaluate} ...``.
+"""Command line of the port: ``python -m speecht_tpu_torch {train,evaluate,search} ...``.
 
-Counterpart of ``speecht_tpu/cli.py``. The ``train`` and ``evaluate``
-subcommands have the JAX package's base and per-command flags, with the
-same names and defaults, plus ``--device {cuda,cpu}`` (default ``cuda``;
-without a card it raises). ``train`` has every flag of the JAX ``train``
-on one device (``--spec-augment``, ``--profile-steps`` and
-``--verbose-summaries`` among them). Paths of the JAX package that the
+Counterpart of ``speecht_tpu/cli.py``. The ``train``, ``evaluate`` and
+``search`` subcommands have the JAX package's base and per-command flags,
+with the same names and defaults, plus ``--device {cuda,cpu}`` (default
+``cuda``; without a card it raises). ``train`` has every flag of the JAX
+``train`` on one device (``--spec-augment``, ``--profile-steps`` and
+``--verbose-summaries`` among them); ``evaluate --language-model`` and
+``search`` run the LM-fused host beam. Paths of the JAX package that the
 port does not have yet raise an error that names the flag; none is
-ignored: ``evaluate --language-model``, ``--from-audio``, and on both
-``--seq-parallel`` or ``--data-parallel``/``--model-parallel`` above 1.
+ignored: ``--device-beam`` (and so ``--rescore``), ``--from-audio``,
+``--seq-parallel`` and ``--data-parallel``/``--model-parallel`` above 1.
 The other subcommands come with later parts of the port.
 """
 
@@ -29,6 +30,7 @@ class CLI:
         self.base_parser = self._create_base_parser()
         self._add_training_parser()
         self._add_evaluation_parser()
+        self._add_parameter_search_parser()
         self._parsed = None
 
     def _create_base_parser(self) -> argparse.ArgumentParser:
@@ -97,7 +99,8 @@ class CLI:
     def _add_language_model_arguments(self, parser):
         parser.add_argument(
             "--language-model", dest="language_model", type=str,
-            help="Beam search with a language model (not ported yet).",
+            help="Directory of the n-gram language model (ARPA or KenLM "
+            "binary, and an optional vocabulary file) for the beam search.",
         )
         parser.add_argument("--lm-weight", dest="lm_weight", type=float, default=0.8)
         parser.add_argument(
@@ -116,6 +119,7 @@ class CLI:
         )
         parser.add_argument(
             "--device-beam", dest="device_beam", action="store_true",
+            help="Beam search on the device (not ported yet).",
         )
         parser.add_argument(
             "--device-lm-hbm-gb", dest="device_lm_hbm_gb", type=float,
@@ -219,27 +223,62 @@ class CLI:
         self._add_language_model_arguments(p)
         p.set_defaults(dataset="test", should_save=True)
 
+    def _add_parameter_search_parser(self):
+        p = self.subparsers.add_parser(
+            "search",
+            help="Search for language model hyperparameters using local search.",
+            parents=[self.base_parser],
+        )
+        p.add_argument(
+            "--population-size", dest="population_size", type=int, default=10
+        )
+        p.add_argument("--noise-std", dest="noise_std", type=float, default=0.5)
+        p.add_argument(
+            "--generations", dest="generations", type=int, default=0,
+            help="Stop after this many mutation/score iterations "
+            "(0 = run until interrupted, the reference behavior).",
+        )
+        p.add_argument("--ui", dest="use_ui", action="store_true")
+        p.add_argument("--step-count", dest="step_count", type=int, default=1)
+        self._add_language_model_arguments(p)
+
     @property
     def parsed(self):
         if self._parsed is None:
             parsed = self.parser.parse_args(self.argv)
             if parsed.command:
-                parsed.run_type = (
-                    "train" if parsed.command == "train" else parsed.dataset
-                )
+                if parsed.command == "train":
+                    parsed.run_type = "train"
+                elif parsed.command == "evaluate":
+                    parsed.run_type = parsed.dataset
+                else:
+                    parsed.run_type = "other"
                 parsed.run_train_dir = parsed.train_dir + "/" + parsed.run_name
+                if hasattr(parsed, "language_model"):
+                    from speecht_tpu_torch.ops.beam import LanguageModelConfig
+
+                    parsed.lm = LanguageModelConfig(
+                        language_model=parsed.language_model,
+                        lm_weight=parsed.lm_weight,
+                        word_count_weight=parsed.word_count_weight,
+                        valid_word_count_weight=parsed.valid_word_count_weight,
+                        beam_width=parsed.beam_width,
+                        blank_threshold=parsed.blank_threshold,
+                        device_beam=parsed.device_beam,
+                        device_lm_hbm_gb=parsed.device_lm_hbm_gb,
+                        rescore_n=parsed.rescore_n,
+                    )
             self._parsed = parsed
         return self._parsed
 
     def _check_ported(self):
         flags = self.parsed
         unported = []
-        if flags.command == "evaluate":
-            if flags.language_model:
-                unported.append("--language-model")
-            if flags.from_audio:
-                unported.append("--from-audio")
-        if flags.seq_parallel > 1:
+        if getattr(flags, "device_beam", False):
+            unported.append("--device-beam")
+        if getattr(flags, "from_audio", False):
+            unported.append("--from-audio")
+        if getattr(flags, "seq_parallel", 0) > 1:
             unported.append("--seq-parallel")
         if flags.data_parallel > 1 or flags.model_parallel > 1:
             unported.append("--data-parallel/--model-parallel above 1")
@@ -268,6 +307,12 @@ class CLI:
             from speecht_tpu_torch.training import Training
 
             return Training(self.parsed).run()
+        if self.parsed.command == "search":
+            from speecht_tpu_torch.parameter_search import (
+                LanguageModelParameterSearch,
+            )
+
+            return LanguageModelParameterSearch(self.parsed).run()
         from speecht_tpu_torch.evaluation import Evaluation
 
         return Evaluation(self.parsed).run()

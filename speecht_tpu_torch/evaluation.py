@@ -1,13 +1,15 @@
-"""Evaluation executor: the cached-feature, greedy-decode branch.
+"""Evaluation executor: the cached-feature branch, greedy or beam decode.
 
-Counterpart of ``speecht_tpu/evaluation.py`` (``run``,
+Counterpart of ``speecht_tpu/evaluation.py`` (``run``, ``make_decoder``,
 ``_result_iterator``, ``_track_batch``, ``print_global_statistics``):
 runs the dev or test split (``--dev``/``--test``) for ``--step-count``
 batches (0 = the whole split), computes the loss and the greedy decode on
-the device, prints per-sample ``expected:``/``decoded:`` lines with
-LED/LER/WED/WER, one ``validation average loss`` line per batch, then the
-global statistics. Unless ``--no-save``, ``eval_loss`` of the first batch
-goes to a TensorBoard event file.
+the device, or with ``--language-model`` the loss and the blank collapse
+on the device and the LM-fused beam on the host (``ops/beam.py``), prints
+per-sample ``expected:``/``decoded:`` lines with LED/LER/WED/WER, one
+``validation average loss`` line per batch, then the global statistics.
+Unless ``--no-save``, ``eval_loss`` of the first batch goes to a
+TensorBoard event file.
 
 Weights come from ``--reference-weights`` (a ``.npy`` directory, see
 ``weights.py``) or else from the latest of the port's own checkpoints in
@@ -21,34 +23,16 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 from speecht_tpu_torch import vocabulary
-from speecht_tpu_torch.execution import DatasetExecutor
+from speecht_tpu_torch.execution import (
+    DatasetExecutor,
+    finish_readback,
+    start_readback,
+)
 from speecht_tpu_torch.metrics import EvalStatistics
 from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.train.metrics_writer import SummaryWriter
 from speecht_tpu_torch.weights import load_weight_dir
-
-
-def _start_readback(tensors):
-    """Start the device -> host copies of a step's outputs.
-
-    On the card the copies go into pinned memory without blocking and an
-    event marks their end, so work launched afterwards is not waited for.
-    """
-    if tensors[0].device.type != "cuda":
-        return list(tensors), None
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
-
-
-def _finish_readback(host, done):
-    if done is not None:
-        done.synchronize()
-    return [t.numpy() for t in host]
 
 
 class Evaluation(DatasetExecutor):
@@ -71,7 +55,18 @@ class Evaluation(DatasetExecutor):
         return self.flags.step_count or None
 
     def make_decoder(self):
-        """Returns batch -> (loss, decoded_rows, decoded_lengths)."""
+        """Returns batch -> (loss, decoded_rows, decoded_lengths).
+
+        With ``--language-model`` the beam decoder is also kept on
+        ``self._beam``, so the run loop can use its pipelined
+        ``eval_batches``.
+        """
+        self._beam = None
+        if self.flags.lm.language_model:
+            from speecht_tpu_torch.ops.beam import BeamSearchDecoder
+
+            self._beam = BeamSearchDecoder(self.model, self.flags.lm)
+            return self._beam.eval_step
         return tstep.make_eval_step(self.model)
 
     def load_weights(self) -> int:
@@ -88,18 +83,25 @@ class Evaluation(DatasetExecutor):
     def _result_iterator(self, eval_step, loader):
         """Yields (host batch, loss, decoded, lengths) as numpy, pipelined.
 
-        Batch N+1's step is launched before batch N's results are read
-        back, so the host-side metrics of batch N run while the card
-        computes batch N+1.
+        Beam path: the decoder overlaps the device and the host itself.
+        Greedy path: batch N+1's step is launched before batch N's results
+        are read back, so the host-side metrics of batch N run while the
+        card computes batch N+1.
         """
+        if self._beam is not None:
+            try:
+                yield from self._beam.eval_batches(loader)
+            finally:
+                self._beam.close()
+            return
         pending = None
         for host_batch, device_batch in loader:
-            out = _start_readback(eval_step(device_batch))
+            out = start_readback(eval_step(device_batch))
             if pending is not None:
-                yield pending[0], *_finish_readback(*pending[1])
+                yield pending[0], *finish_readback(*pending[1])
             pending = (host_batch, out)
         if pending is not None:
-            yield pending[0], *_finish_readback(*pending[1])
+            yield pending[0], *finish_readback(*pending[1])
 
     def run(self) -> EvalStatistics:
         flags = self.flags

@@ -75,6 +75,26 @@ def init_state(
     return create_train_state(dict(model.named_parameters()), tx, lr), tx
 
 
+def start_readback(tensors):
+    """Start the device -> host copies of a step's outputs.
+
+    On the card the copies go into pinned memory without blocking and an
+    event marks their end, so work launched afterwards is not waited for.
+    """
+    if tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def finish_readback(host, done):
+    if done is not None:
+        done.synchronize()
+    return [t.numpy() for t in host]
+
+
 class DatasetExecutor(abc.ABC):
     """Base for executors that stream the cached corpus through the model."""
 

@@ -1,0 +1,226 @@
+"""The port's host C++: the n-gram LM and the CTC prefix beam search.
+
+Counterpart of the LM and beam half of ``speecht_tpu/native/__init__.py``
+(:func:`lm_is_binary`, :class:`NGramLM`, :func:`ctc_beam_search`). The
+sources in this directory are the port's own copies of the JAX package's
+``lm.h``, ``beam_search.cpp`` and the reader half of ``kenlm_binary.cpp``;
+the same emissions give the same ids.
+
+The library is compiled with ``g++`` at first use, never at import, into
+``_build/libspeecht_host-<digest>.so`` inside the package, where
+``<digest>`` hashes the sources, the header and the flags: an edited
+source rebuilds and a built one is reused. Each build writes a file of its
+own and renames it into place, so processes that build at the same moment
+do not see each other's partial output. A failed build raises
+RuntimeError with the compiler's output; there is no Python fallback.
+
+The library is built with hidden visibility and exports only its ``stt_``
+C functions, so it can share a process with the JAX package's
+``libspeecht_native.so``. It is loaded with ``ctypes.CDLL``, which
+releases the GIL during each call, so a thread pool of beams scales.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from speecht_tpu_torch.ops.cuda_build import BUILD_DIR
+
+NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCES = ("beam_search.cpp", "kenlm_binary.cpp")
+HEADERS = ("lm.h",)
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def library_path() -> str:
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(NATIVE_DIR, name), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(
+        BUILD_DIR, f"libspeecht_host-{digest.hexdigest()[:16]}.so"
+    )
+
+
+def build() -> str:
+    """Compile the library unless it is built; returns its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [
+        "g++", *CXX_FLAGS, "-o", tmp,
+        *(os.path.join(NATIVE_DIR, s) for s in SOURCES),
+    ]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(
+            "g++ not found: the port's host library is built from source "
+            "at first use"
+        ) from e
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"host library build failed:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return path
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "stt_lm_load": ([ctypes.c_char_p, ctypes.c_char_p], _P),
+    "stt_lm_free": ([_P], None),
+    "stt_lm_order": ([_P], ctypes.c_int),
+    "stt_lm_score_word": ([_P, ctypes.c_char_p, ctypes.c_char_p], ctypes.c_float),
+    "stt_lm_has_word": ([_P, ctypes.c_char_p], ctypes.c_int),
+    "stt_lm_score_sentence": (
+        [
+            _P,
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ],
+        None,
+    ),
+    "stt_lm_is_binary": ([ctypes.c_char_p], ctypes.c_int),
+    "stt_ctc_beam_search": (
+        [
+            ctypes.POINTER(ctypes.c_float),  # log_probs
+            ctypes.c_int64,  # T
+            ctypes.c_int32,  # C
+            ctypes.c_int32,  # blank_id
+            ctypes.c_int32,  # beam_width
+            _P,  # lm
+            ctypes.c_float,  # lm_weight
+            ctypes.c_float,  # word_count_weight
+            ctypes.c_float,  # valid_word_count_weight
+            ctypes.c_int32,  # prune_top_k
+            ctypes.POINTER(ctypes.c_int32),  # out_ids
+            ctypes.c_int32,  # out_capacity
+        ],
+        ctypes.c_int,
+    ),
+}
+
+
+def load() -> ctypes.CDLL:
+    """Build the library if needed and load it (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+    return _lib
+
+
+def lm_is_binary(path: str) -> bool:
+    """True when ``path`` is a KenLM binary ("mmap lm ..." magic)."""
+    return bool(load().stt_lm_is_binary(path.encode()))
+
+
+class NGramLM:
+    """Backoff word LM + vocabulary trie (native handle).
+
+    Accepts KenLM's ARPA source format or its PROBING binary format
+    (``kenlm-model.binary``), told apart by the binary's magic. A file
+    that cannot be read raises ValueError.
+    """
+
+    def __init__(self, model_path: str, vocab_path: str | None = None):
+        lib = load()
+        self._lib = lib
+        self._handle = lib.stt_lm_load(
+            model_path.encode(), (vocab_path or "").encode()
+        )
+        if not self._handle:
+            raise ValueError(f"failed to load LM from {model_path}")
+
+    @property
+    def order(self) -> int:
+        return self._lib.stt_lm_order(self._handle)
+
+    def score_word(self, history: str, word: str) -> float:
+        """log10 P(word | history words)."""
+        return float(
+            self._lib.stt_lm_score_word(
+                self._handle, history.encode(), word.encode()
+            )
+        )
+
+    def has_word(self, word: str) -> bool:
+        return bool(self._lib.stt_lm_has_word(self._handle, word.encode()))
+
+    def score_sentence(self, text: str) -> tuple[float, int, int]:
+        """(sum of log10 P per word, #words, #valid words) for a sentence,
+        with the beam's history (<s> and the last 4 words)."""
+        lm_sum = ctypes.c_float()
+        n_words = ctypes.c_int32()
+        n_valid = ctypes.c_int32()
+        self._lib.stt_lm_score_sentence(
+            self._handle,
+            text.encode(),
+            ctypes.byref(lm_sum),
+            ctypes.byref(n_words),
+            ctypes.byref(n_valid),
+        )
+        return float(lm_sum.value), int(n_words.value), int(n_valid.value)
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._lib.stt_lm_free(handle)
+            self._handle = None
+
+
+def ctc_beam_search(
+    log_probs: np.ndarray,
+    beam_width: int = 100,
+    lm: NGramLM | None = None,
+    lm_weight: float = 0.8,
+    word_count_weight: float = 0.0,
+    valid_word_count_weight: float = 2.3,
+    blank_id: int = 28,
+    prune_top_k: int = 8,
+) -> np.ndarray:
+    """Prefix beam search over [T, C] natural-log emissions -> decoded ids."""
+    log_probs = np.ascontiguousarray(log_probs, dtype=np.float32)
+    if log_probs.ndim != 2:
+        raise ValueError(f"log_probs must be [T, C], got {log_probs.shape}")
+    T, C = log_probs.shape
+    if not 0 <= blank_id < C:
+        raise ValueError(f"blank_id {blank_id} is not a class of {C}")
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be at least 1, got {beam_width}")
+    out = np.zeros(max(T, 1), dtype=np.int32)
+    n = load().stt_ctc_beam_search(
+        log_probs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        T,
+        C,
+        blank_id,
+        beam_width,
+        lm._handle if lm is not None else None,
+        lm_weight,
+        word_count_weight,
+        valid_word_count_weight,
+        prune_top_k,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(out),
+    )
+    return out[:n]

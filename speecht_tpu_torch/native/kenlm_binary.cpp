@@ -1,0 +1,515 @@
+// KenLM PROBING binary format: the reader.
+//
+// The port's own copy of the reader half of the JAX package's
+// `speecht_tpu/native/kenlm_binary.cpp` (the `KenlmBinaryScorer`,
+// `load_kenlm_binary_scorer` and `is_kenlm_binary`), in a namespace of its
+// own; the ARPA -> binary writer and the raw-table dump are not copied
+// (nothing of the host beam calls them). It reads the reference's released
+// language-model bundle (`kenlm-model.binary` + `vocabulary`) directly, with
+// no KenLM dependency:
+//
+//   [Sanity header]  magic "mmap lm http://kheafield.com/code format
+//                    version 5", float/endianness canaries
+//   [FixedWidthParameters]  order, probing multiplier, model type,
+//                    has_vocabulary, search version
+//   [counts]         uint64 n-gram counts per order
+//   [vocabulary]     ProbingVocabularyHeader + open-addressing hash table
+//                    of (murmur64(word) -> word id)
+//   [unigram]        (counts[0]+1) x {float prob, float backoff}
+//   [middle tables]  per order 2..order-1: open-addressing hash of
+//                    (chained word-id hash -> {prob, backoff}), 16 B entries
+//   [longest table]  (hash -> {prob}), 12 B entries
+//   [word strings]   nul-terminated surface forms in id order (present when
+//                    has_vocabulary)
+//
+// Model types other than PROBING (0) -- REST_PROBING and the TRIE family --
+// are rejected with a clear error suggesting the ARPA source.
+//
+// Layout robustness: the exact slot counts of the vocabulary table and the
+// unigram array vary across KenLM builds; the reader solves for them by
+// testing a small hypothesis grid and validating that the trailing string
+// section parses as words with "<unk>" first -- a mis-parse fails loudly
+// instead of mis-scoring.
+
+#include "lm.h"
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <cmath>
+#include <fstream>
+#include <memory>
+#include <sstream>
+#include <string>
+#include <unordered_map>
+#include <vector>
+
+namespace speecht_torch {
+namespace {
+
+constexpr char kMagicPrefix[] =
+    "mmap lm http://kheafield.com/code format version ";
+constexpr uint32_t kModelTypeProbing = 0;
+constexpr float kDefaultMultiplier = 1.5f;
+
+inline uint64_t align8(uint64_t n) { return (n + 7) & ~uint64_t(7); }
+
+// MurmurHash64A (public domain, Austin Appleby) — KenLM's word hash with
+// seed 0 (lm/vocab: detail::HashForVocab).
+uint64_t murmur64a(const void* key, size_t len, uint64_t seed) {
+  const uint64_t m = 0xc6a4a7935bd1e995ull;
+  const int r = 47;
+  uint64_t h = seed ^ (len * m);
+  const unsigned char* data = (const unsigned char*)key;
+  const unsigned char* end = data + (len / 8) * 8;
+  while (data != end) {
+    uint64_t k;
+    std::memcpy(&k, data, 8);
+    data += 8;
+    k *= m;
+    k ^= k >> r;
+    k *= m;
+    h ^= k;
+    h *= m;
+  }
+  switch (len & 7) {
+    case 7: h ^= uint64_t(data[6]) << 48; [[fallthrough]];
+    case 6: h ^= uint64_t(data[5]) << 40; [[fallthrough]];
+    case 5: h ^= uint64_t(data[4]) << 32; [[fallthrough]];
+    case 4: h ^= uint64_t(data[3]) << 24; [[fallthrough]];
+    case 3: h ^= uint64_t(data[2]) << 16; [[fallthrough]];
+    case 2: h ^= uint64_t(data[1]) << 8; [[fallthrough]];
+    case 1: h ^= uint64_t(data[0]); h *= m;
+  }
+  h ^= h >> r;
+  h *= m;
+  h ^= h >> r;
+  return h;
+}
+
+inline uint64_t word_hash(const std::string& w) {
+  return murmur64a(w.data(), w.size(), 0);
+}
+
+// KenLM's chained n-gram hash (lm/search_hashed detail::CombineWordHash):
+// start from the first word id, fold each subsequent id in.
+inline uint64_t combine_word_hash(uint64_t current, uint32_t next) {
+  return (current * 8978948897894561157ull) ^
+         (uint64_t(1 + next) * 17894857484156487943ull);
+}
+
+inline uint64_t ngram_hash(const uint32_t* ids, int n) {
+  uint64_t h = ids[0];
+  for (int i = 1; i < n; ++i) h = combine_word_hash(h, ids[i]);
+  return h;
+}
+
+inline uint64_t probing_buckets(uint64_t entries, float multiplier) {
+  uint64_t by_mult = (uint64_t)(multiplier * (float)entries);
+  return entries + 1 > by_mult ? entries + 1 : by_mult;
+}
+
+// entry sizes (KenLM packs these structs to 4 bytes)
+constexpr uint64_t kVocabEntryBytes = 12;    // uint64 key, uint32 id
+constexpr uint64_t kMiddleEntryBytes = 16;   // uint64 key, float prob, bo
+constexpr uint64_t kLongestEntryBytes = 12;  // uint64 key, float prob
+constexpr uint64_t kProbBackoffBytes = 8;
+
+struct Layout {
+  // hypothesis parameters
+  uint64_t vocab_entries;
+  uint64_t unigram_slots;
+  // derived offsets (bytes from file start)
+  uint64_t vocab_header;  // ProbingVocabularyHeader (8 bytes)
+  uint64_t vocab_table;
+  uint64_t unigram;
+  std::vector<uint64_t> middle;  // orders 2..order-1
+  uint64_t longest;
+  uint64_t strings;  // start of the word-string section
+
+  uint64_t vocab_buckets = 0;
+  std::vector<uint64_t> middle_buckets;
+  uint64_t longest_buckets = 0;
+};
+
+Layout compute_layout(uint64_t header_end, int order,
+                      const std::vector<uint64_t>& counts, float multiplier,
+                      uint64_t vocab_entries, uint64_t unigram_slots) {
+  Layout lay;
+  lay.vocab_entries = vocab_entries;
+  lay.unigram_slots = unigram_slots;
+  lay.vocab_header = header_end;
+  lay.vocab_table = header_end + align8(8);
+  lay.vocab_buckets = probing_buckets(vocab_entries, multiplier);
+  lay.unigram = lay.vocab_table + lay.vocab_buckets * kVocabEntryBytes;
+  uint64_t pos = lay.unigram + unigram_slots * kProbBackoffBytes;
+  for (int n = 2; n < order; ++n) {
+    lay.middle.push_back(pos);
+    uint64_t buckets = probing_buckets(counts[n - 1], multiplier);
+    lay.middle_buckets.push_back(buckets);
+    pos += buckets * kMiddleEntryBytes;
+  }
+  lay.longest = pos;
+  if (order >= 2) {
+    lay.longest_buckets = probing_buckets(counts[order - 1], multiplier);
+    pos += lay.longest_buckets * kLongestEntryBytes;
+  }
+  lay.strings = pos;
+  return lay;
+}
+
+inline float read_f32(const char* p) {
+  float f;
+  std::memcpy(&f, p, 4);
+  return f;
+}
+inline uint32_t read_u32(const char* p) {
+  uint32_t v;
+  std::memcpy(&v, p, 4);
+  return v;
+}
+inline uint64_t read_u64(const char* p) {
+  uint64_t v;
+  std::memcpy(&v, p, 8);
+  return v;
+}
+
+class KenlmBinaryScorer : public NGramScorer {
+ public:
+  bool load(const char* path, std::string* err);
+
+  int order() const override { return order_; }
+  uint32_t bos_id() const override { return bos_id_; }
+
+  uint32_t word_id(const std::string& w) const override {
+    auto it = vocab_.find(w);
+    return it == vocab_.end() ? 0u /* <unk> */ : it->second;
+  }
+
+  void vocab_words(std::vector<std::string>* out) const override {
+    *out = words_;
+  }
+
+  float score(const uint32_t* history, int hist_len,
+              uint32_t word) const override {
+    int ctx = hist_len < order_ - 1 ? hist_len : order_ - 1;
+    uint32_t ids[16];
+    for (int i = 0; i < ctx; ++i) ids[i] = history[hist_len - ctx + i];
+    ids[ctx] = word;
+    float backoff_sum = 0.0f;
+    for (int n = ctx + 1; n >= 1; --n) {
+      const uint32_t* start = ids + (ctx + 1 - n);
+      float prob, backoff;
+      if (find(start, n, &prob, &backoff)) return prob + backoff_sum;
+      if (n > 1) {
+        float bo_prob, bo;
+        if (find(start, n - 1, &bo_prob, &bo)) backoff_sum += bo;
+      }
+    }
+    // unigram of <unk>
+    float prob, backoff;
+    find_unigram(0, &prob, &backoff);
+    return prob + backoff_sum;
+  }
+
+ private:
+  bool find_unigram(uint32_t id, float* prob, float* backoff) const {
+    if (id >= lay_.unigram_slots) return false;
+    const char* p = data_.data() + lay_.unigram + id * kProbBackoffBytes;
+    *prob = read_f32(p);
+    *backoff = read_f32(p + 4);
+    return true;
+  }
+
+  bool probe(uint64_t base, uint64_t buckets, uint64_t entry_bytes,
+             uint64_t key, const char** out) const {
+    if (buckets == 0) return false;
+    uint64_t b = key % buckets;
+    for (uint64_t i = 0; i < buckets; ++i) {
+      const char* p = data_.data() + base + b * entry_bytes;
+      uint64_t k = read_u64(p);
+      if (k == key) {
+        *out = p;
+        return true;
+      }
+      if (k == 0) return false;  // empty slot terminates the probe chain
+      b = (b + 1) % buckets;
+    }
+    return false;
+  }
+
+  bool find(const uint32_t* ids, int n, float* prob, float* backoff) const {
+    if (n == 1) return find_unigram(ids[0], prob, backoff);
+    if (n > order_) return false;
+    uint64_t key = ngram_hash(ids, n);
+    if (key == 0) key = 1;  // writer remaps 0 (the empty-slot marker)
+    const char* p;
+    if (n == order_) {
+      if (!probe(lay_.longest, lay_.longest_buckets, kLongestEntryBytes,
+                 key, &p))
+        return false;
+      *prob = read_f32(p + 8);
+      *backoff = 0.0f;
+      return true;
+    }
+    if (!probe(lay_.middle[n - 2], lay_.middle_buckets[n - 2],
+               kMiddleEntryBytes, key, &p))
+      return false;
+    *prob = read_f32(p + 8);
+    *backoff = read_f32(p + 12);
+    return true;
+  }
+
+  std::vector<char> data_;
+  Layout lay_;
+  int order_ = 0;
+  std::vector<uint64_t> counts_;
+  std::unordered_map<std::string, uint32_t> vocab_;
+  std::vector<std::string> words_;  // id order
+  uint32_t bos_id_ = UINT32_MAX;
+
+ public:
+  // ---- raw-table dump (builds the DEVICE beam's HBM tables from a binary;
+  // the n-gram keys are one-way hashes, so word sequences are
+  // unrecoverable — but the device search recomputes the same chained hash
+  // from word-id windows, so (key -> prob/backoff) is all it needs) ----
+  int dump_order() const { return order_; }
+  uint64_t dump_unigram_slots() const { return lay_.unigram_slots; }
+  const std::vector<std::string>& dump_words() const { return words_; }
+
+  void dump_unigrams(float* prob, float* backoff) const {
+    for (uint64_t id = 0; id < lay_.unigram_slots; ++id) {
+      const char* p = data_.data() + lay_.unigram + id * kProbBackoffBytes;
+      prob[id] = read_f32(p);
+      backoff[id] = read_f32(p + 4);
+    }
+  }
+
+  // occupied entries of the order-n hash table (n in 2..order)
+  uint64_t dump_table_count(int n) const {
+    uint64_t base, buckets, entry;
+    if (!table_geometry(n, &base, &buckets, &entry)) return 0;
+    uint64_t cnt = 0;
+    for (uint64_t b = 0; b < buckets; ++b)
+      if (read_u64(data_.data() + base + b * entry) != 0) ++cnt;
+    return cnt;
+  }
+
+  int dump_table(int n, uint32_t* lo, uint32_t* hi, float* prob,
+                 float* backoff) const {
+    uint64_t base, buckets, entry;
+    if (!table_geometry(n, &base, &buckets, &entry)) return 1;
+    uint64_t i = 0;
+    for (uint64_t b = 0; b < buckets; ++b) {
+      const char* p = data_.data() + base + b * entry;
+      uint64_t key = read_u64(p);
+      if (key == 0) continue;
+      lo[i] = (uint32_t)(key & 0xFFFFFFFFull);
+      hi[i] = (uint32_t)(key >> 32);
+      prob[i] = read_f32(p + 8);
+      backoff[i] = (n == order_) ? 0.0f : read_f32(p + 12);
+      ++i;
+    }
+    return 0;
+  }
+
+ private:
+  bool table_geometry(int n, uint64_t* base, uint64_t* buckets,
+                      uint64_t* entry) const {
+    if (n < 2 || n > order_) return false;
+    if (n == order_) {
+      *base = lay_.longest;
+      *buckets = lay_.longest_buckets;
+      *entry = kLongestEntryBytes;
+    } else {
+      *base = lay_.middle[n - 2];
+      *buckets = lay_.middle_buckets[n - 2];
+      *entry = kMiddleEntryBytes;
+    }
+    return true;
+  }
+};
+
+// Parse the trailing nul-terminated string section; true when it yields
+// >= 1 word, the first is "<unk>", and the bytes end cleanly.
+bool parse_strings(const std::vector<char>& data, uint64_t start,
+                   std::vector<std::string>* words) {
+  words->clear();
+  if (start >= data.size()) return false;
+  uint64_t pos = start;
+  while (pos < data.size()) {
+    const char* s = data.data() + pos;
+    size_t maxlen = data.size() - pos;
+    size_t len = strnlen(s, maxlen);
+    if (len == maxlen) return false;  // no terminator
+    words->push_back(std::string(s, len));
+    pos += len + 1;
+    // tolerate trailing padding nuls at EOF
+    if (pos < data.size() && data[pos] == '\0') {
+      bool all_nul = true;
+      for (uint64_t q = pos; q < data.size(); ++q)
+        if (data[q] != '\0') {
+          all_nul = false;
+          break;
+        }
+      if (all_nul) break;
+    }
+  }
+  return !words->empty() && (*words)[0] == "<unk>";
+}
+
+bool KenlmBinaryScorer::load(const char* path, std::string* err) {
+  // one sized fread, not an istreambuf_iterator copy: production KenLM
+  // binaries are hundreds of MB and the byte-at-a-time stream read plus
+  // reallocating vector growth costs seconds-to-minutes of startup
+  FILE* f = fopen(path, "rb");
+  if (!f) {
+    *err = "cannot open file";
+    return false;
+  }
+  fseek(f, 0, SEEK_END);
+  long n = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  if (n < 0) {
+    fclose(f);
+    *err = "cannot stat file";
+    return false;
+  }
+  data_.resize((size_t)n);
+  bool read_ok = fread(data_.data(), 1, (size_t)n, f) == (size_t)n;
+  fclose(f);
+  if (!read_ok) {
+    *err = "short read";
+    return false;
+  }
+  if (data_.size() < 128 ||
+      std::memcmp(data_.data(), kMagicPrefix, sizeof(kMagicPrefix) - 1)) {
+    *err = "not a KenLM binary (magic mismatch)";
+    return false;
+  }
+
+  // locate the Sanity tail by its unambiguous canary pattern:
+  // f32 0.0, f32 1.0, f32 -0.5, u32 1, u32 0xFFFFFFFF, [pad], u64 1
+  uint64_t sanity_end = 0;
+  for (uint64_t off = sizeof(kMagicPrefix) - 1;
+       off + 24 <= 256 && off + 24 <= data_.size(); ++off) {
+    const char* p = data_.data() + off;
+    if (read_f32(p) == 0.0f && read_f32(p + 4) == 1.0f &&
+        read_f32(p + 8) == -0.5f && read_u32(p + 12) == 1u &&
+        read_u32(p + 16) == 0xFFFFFFFFu) {
+      uint64_t u64_off = off + 20;
+      if (u64_off % 8) u64_off += 8 - (u64_off % 8);
+      if (u64_off + 8 <= data_.size() &&
+          read_u64(data_.data() + u64_off) == 1ull) {
+        sanity_end = align8(u64_off + 8);
+        break;
+      }
+    }
+  }
+  if (!sanity_end) {
+    *err = "KenLM sanity header not recognized (endianness or version?)";
+    return false;
+  }
+
+  // FixedWidthParameters
+  const char* fix = data_.data() + sanity_end;
+  order_ = (unsigned char)fix[0];
+  float multiplier = read_f32(fix + 4);
+  uint32_t model_type = read_u32(fix + 8);
+  bool has_vocab = fix[12] != 0;
+  // (search_version at fix+16 accepted as-is)
+  if (order_ < 1 || order_ > 12) {
+    *err = "implausible order " + std::to_string(order_);
+    return false;
+  }
+  if (!(multiplier >= 1.0f && multiplier <= 100.0f)) {  // NaN-safe
+    *err = "implausible probing multiplier (corrupt header?)";
+    return false;
+  }
+  if (model_type != kModelTypeProbing) {
+    *err = "unsupported KenLM model type " + std::to_string(model_type) +
+           " (only PROBING=0 is supported; rebuild the binary with "
+           "`build_binary probing` or use the ARPA source)";
+    return false;
+  }
+  if (!has_vocab) {
+    *err = "binary lacks the embedded vocabulary strings "
+           "(build_binary without vocab); word ids cannot be recovered";
+    return false;
+  }
+  uint64_t counts_off = sanity_end + 20;
+  if (counts_off + 8ull * order_ > data_.size()) {
+    *err = "truncated header";
+    return false;
+  }
+  counts_.resize(order_);
+  for (int i = 0; i < order_; ++i) {
+    counts_[i] = read_u64(data_.data() + counts_off + 8ull * i);
+    // guard the layout arithmetic against overflow from corrupt counts:
+    // even the largest published LMs are << 2^40 n-grams
+    if (counts_[i] > (1ull << 40)) {
+      *err = "implausible n-gram count (corrupt header?)";
+      return false;
+    }
+  }
+  uint64_t header_end = align8(counts_off + 8ull * order_);
+
+  // solve the layout: vocabulary-table and unigram slot counts vary by
+  // KenLM build; accept the hypothesis whose string section validates
+  uint64_t c0 = counts_[0];
+  const uint64_t vocab_options[] = {c0, c0 + 1, c0 > 0 ? c0 - 1 : 0};
+  const uint64_t uni_options[] = {c0 + 1, c0, c0 + 2};
+  bool solved = false;
+  for (uint64_t ve : vocab_options) {
+    for (uint64_t us : uni_options) {
+      Layout lay = compute_layout(header_end, order_, counts_, multiplier,
+                                  ve, us);
+      // every table must lie inside the file (monotonic offsets also rule
+      // out arithmetic wrap-around)
+      bool sane = lay.vocab_table >= lay.vocab_header &&
+                  lay.unigram >= lay.vocab_table &&
+                  lay.longest >= lay.unigram &&
+                  lay.strings >= lay.longest &&
+                  lay.strings <= data_.size();
+      std::vector<std::string> words;
+      if (sane && parse_strings(data_, lay.strings, &words)) {
+        lay_ = lay;
+        words_ = std::move(words);
+        solved = true;
+        break;
+      }
+    }
+    if (solved) break;
+  }
+  if (!solved) {
+    *err = "could not resolve the binary layout (string section did not "
+           "validate); regenerate it with `build_binary probing` or use "
+           "the ARPA source";
+    return false;
+  }
+
+  vocab_.reserve(words_.size() * 2);
+  for (uint32_t i = 0; i < words_.size(); ++i) vocab_.emplace(words_[i], i);
+  auto bos = vocab_.find("<s>");
+  if (bos != vocab_.end()) bos_id_ = bos->second;
+  return true;
+}
+
+}  // namespace
+
+NGramScorer* load_kenlm_binary_scorer(const char* path, std::string* err) {
+  auto scorer = std::make_unique<KenlmBinaryScorer>();
+  if (!scorer->load(path, err)) return nullptr;
+  return scorer.release();
+}
+
+bool is_kenlm_binary(const char* path) {
+  std::ifstream f(path, std::ios::binary);
+  if (!f.good()) return false;
+  char head[sizeof(kMagicPrefix)] = {0};
+  f.read(head, sizeof(kMagicPrefix) - 1);
+  return f.gcount() == (std::streamsize)(sizeof(kMagicPrefix) - 1) &&
+         std::memcmp(head, kMagicPrefix, sizeof(kMagicPrefix) - 1) == 0;
+}
+
+}  // namespace speecht_torch

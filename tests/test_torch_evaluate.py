@@ -8,7 +8,9 @@ float32 compute and transfer on both sides. The sorted expected/decoded
 pairs and the ``Global statistics`` and ``precise:`` lines must be equal,
 and the loss must agree to its printed 2 decimals (within 0.01: the
 reader shuffles each run anew, so the batch's rows are summed in another
-order, and a loss near 190 can straddle a rounding boundary).
+order, and a loss near 190 can straddle a rounding boundary). The same
+holds for ``evaluate --language-model`` with ``test_beam.py``'s ARPA LM
+and a vocabulary file (beam width 8).
 """
 
 import os
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from speecht_tpu.cli import CLI as JaxCLI
+from test_beam import ARPA
 from speecht_tpu_torch.cli import CLI
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
 from speecht_tpu_torch.weights import params_to_jax
@@ -104,6 +107,32 @@ def test_evaluate_matches_jax(workdir, capsys):
     )
 
 
+def test_evaluate_language_model_matches_jax(workdir, capsys):
+    lm_dir = workdir / "lm"
+    lm_dir.mkdir(exist_ok=True)
+    (lm_dir / "model.arpa").write_text(ARPA)
+    (lm_dir / "vocabulary").write_text("the\ncat\ndog\nsat\n")
+    lm_flags = ["--language-model", str(lm_dir), "--beam-width", "8"]
+    jax_stats = JaxCLI(_argv(workdir, *lm_flags)).run()
+    jax_out = capsys.readouterr().out
+    stats = CLI(_argv(workdir, "--device", "cpu", *lm_flags)).run()
+    out = capsys.readouterr().out
+
+    pairs, loss, tail = _parse(out)
+    jax_pairs, jax_loss, jax_tail = _parse(jax_out)
+    assert len(pairs) == 7 and stats.decodings_counter == 7
+    assert pairs == jax_pairs
+    assert len(loss) == len(jax_loss) == 1
+    assert abs(loss[0] - jax_loss[0]) <= 0.01
+    assert tail == jax_tail
+    assert stats.global_letter_error_rate == pytest.approx(
+        jax_stats.global_letter_error_rate
+    )
+    greedy = CLI(_argv(workdir, "--device", "cpu")).run()
+    capsys.readouterr()
+    assert stats.global_letter_error_rate != greedy.global_letter_error_rate
+
+
 def test_evaluate_writes_eval_loss_summary(workdir, capsys):
     argv = [a for a in _argv(workdir, "--device", "cpu") if a != "--no-save"]
     CLI(argv + ["--run-name", "summary"]).run()
@@ -131,7 +160,7 @@ def test_missing_weights_is_fatal(workdir):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--language-model", "lm"],
+        ["--language-model", "lm", "--device-beam"],
         ["--from-audio"],
         ["--seq-parallel", "2"],
         ["--data-parallel", "2"],

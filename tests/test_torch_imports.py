@@ -2,11 +2,14 @@
 
 Checked twice: an AST scan of every source of ``speecht_tpu_torch`` and of
 ``chip_smoke.py``, and a fresh interpreter that imports every module of
-the package and then looks at ``sys.modules``.
+the package and then looks at ``sys.modules``. The port's host C++
+(``speecht_tpu_torch/native``) includes only its own files and the
+standard library's headers.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -91,3 +94,41 @@ def test_every_module_of_the_conv0_slice_is_checked():
         "speecht_tpu_torch.models.wav2letter",
     ):
         assert m in mods
+
+
+def test_every_module_of_the_beam_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.native",
+        "speecht_tpu_torch.ops.beam",
+        "speecht_tpu_torch.ops.decode",
+        "speecht_tpu_torch.parameter_search",
+        "speecht_tpu_torch.evaluation",
+    ):
+        assert m in mods
+
+
+def _native_sources():
+    native = os.path.join(PACKAGE, "native")
+    return sorted(
+        os.path.join(native, f)
+        for f in os.listdir(native)
+        if f.endswith((".cpp", ".h"))
+    )
+
+
+@pytest.mark.parametrize(
+    "path", _native_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_native_source_includes_nothing_outside_its_directory(path):
+    """A quoted include names a file of the same directory; an angle
+    include names a standard header (no path)."""
+    here = os.listdir(os.path.dirname(path))
+    with open(path) as f:
+        includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', f.read(), re.M)
+    assert includes
+    for kind, name in includes:
+        if kind == '"':
+            assert name in here, f"{path} includes {name}"
+        else:
+            assert "/" not in name and "." not in name, f"{path} includes <{name}>"
