@@ -10,8 +10,9 @@ drives the port's main path through its normal entry point, and fails
 
 1. Environment: card name and power limit (``nvidia-smi``), torch and
    CUDA versions, kernel build time (all sources compiled in parallel)
-   and the build time of the port's host library (``g++``: the beam
-   search and the n-gram LM), built beside them.
+   and the build time of the port's host library (``g++``: FLAC decode,
+   resample, the npz reader, the beam search and the n-gram LM), built
+   beside them, and the symbols it exports (only ``stt_`` ones).
 2. Each kernel against its plain PyTorch version on the card: the CTC
    alpha kernel, without the history (evaluate's variant) and with it
    (train's), at the evaluate/train shape (B=64, T=512 logit frames,
@@ -47,7 +48,9 @@ drives the port's main path through its normal entry point, and fails
    cached corpus (256 utterances of 600-1024 frames) with full-width
    random weights (128/250/2000/29, 11 layers) written as a
    reference-layout ``.npy`` directory; every kernel's launch count is set
-   to 0 just before and read just after; ms per batch and utterances/s.
+   to 0 just before and read just after; ms per batch and utterances/s,
+   each host stage of one batch alone, and the 64-file npz read through
+   the native reader and through ``np.load`` in turns.
 3b. The train path: the same weights written as a port checkpoint at
    step 0, then ``CLI(["train", "--max-steps", "8",
    "--steps-per-checkpoint", "4", "--batch-size", "64", ...]).run()`` on
@@ -88,6 +91,22 @@ drives the port's main path through its normal entry point, and fails
    64 utterances with the same LM, from a port checkpoint of the 3d
    weights: five candidates scored and sorted, ``ctc_alpha`` launched once
    for the one dev batch; ms per candidate.
+3f. The audio front end: a synthetic FLAC corpus written from a seed by
+   ``write_flac`` (64 test and 64 dev utterances, 16 kHz 16-bit mono,
+   4.4-7.4 s, FIXED order-2 rice-coded subframes, 60-200 letters each,
+   the corpus sets marked as extracted); ``preprocess --test-only`` on the
+   host DSP into data dir A (``python -m speecht_tpu_torch`` in a process
+   of its own, as a user runs it) and ``preprocess --test-only --device``
+   (the resample and DSP on the card) into data dir B, each with its
+   files/s;
+   ``evaluate --from-audio`` (greedy, B=64, the phase-3 weights; the
+   resample 16000 -> 22050 on the card) and ``evaluate --from-audio
+   --language-model`` (the phase-3d LM and weights, the dev split), then
+   ``evaluate`` on cache B read through the native npz reader; launch
+   counts reset just before each and read just after (``ctc_alpha`` once
+   a batch, ``ctc_beta`` and conv0 never); ms per batch, utterances/s and
+   one batch's FLAC decode, batch build, int16 pin + H2D, front end on the
+   card, eval step and metrics, each alone; the phase's wall time.
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
@@ -100,6 +119,14 @@ drives the port's main path through its normal entry point, and fails
    value plus 1e-4); how many rows the host beam decodes alike on the
    two sides is reported, not checked (a near tie may flip on a 1e-6
    difference in the emissions).
+4e. The audio path, card vs CPU (float32): with TF32 switched on
+   process-wide, the resample of one padded batch (8 utterances and a
+   padding row) to 1e-5 and the front end's power and MFCC features to
+   1e-3 + 1e-3 x |value| (the front end pins IEEE float32 for its own
+   products); then with TF32 off the from-audio eval step's loss and
+   decodes as phase 4; cache B against cache A, file by file, within
+   JAX's device-against-host tolerance (1e-2 + 1e-2 x |value|) plus one
+   bfloat16 spacing.
 5. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -873,6 +900,40 @@ def main_path(work, kernels, card):
     return launches, data_dir, weights, steady_ms
 
 
+def read_npz_both_ways(data_dir):
+    """The 64 files of one batch read alone through the native reader and
+    through ``np.load``, in turns (native, np.load, np.load, native)."""
+    from speecht_tpu_torch import native
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    directory = SpeechCorpusReader(data_dir)._get_directory("power", "test")
+    files = sorted(os.listdir(directory))[:MAIN_BATCH]
+    paths = [os.path.join(directory, f) for f in files]
+
+    def with_np_load():
+        for p in paths:
+            with np.load(p) as data:
+                data["audio_fragments"], data["transcript"]
+
+    def with_native():
+        for p in paths:
+            native.npz_load_sample(p)
+
+    times = {"native": [], "np.load": []}
+    for name, fn in (("native", with_native), ("np.load", with_np_load),
+                     ("np.load", with_np_load), ("native", with_native)):
+        t0 = time.perf_counter()
+        fn()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    feats, transcript = native.npz_load_sample(paths[0])
+    with np.load(paths[0]) as data:
+        check(np.array_equal(feats, data["audio_fragments"])
+              and np.array_equal(transcript, data["transcript"]),
+              "the native npz reader and np.load disagree")
+    print(f"npz read of {len(paths)} files alone (host clock, in turns): native reader "
+          f"{times['native']!r} ms, np.load {times['np.load']!r} ms")
+
+
 def breakdown(data_dir, weights, steady_ms, card):
     """Where one batch's time goes: each host stage of the main path timed
     alone on the host clock, the eval step (forward, CTC, decode) on the
@@ -902,8 +963,9 @@ def breakdown(data_dir, weights, steady_ms, card):
     dev = to_device(batch, torch.device("cuda"))
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    stages["read npz (host)"] = (t1 - t0) * 1e3
+    stages["read npz (host, native reader)"] = (t1 - t0) * 1e3
     stages["build_batch (host)"] = (t2 - t1) * 1e3
+    read_npz_both_ways(data_dir)
     stages["bf16 cast + pin + H2D"] = (t3 - t2) * 1e3
     stages["eval step (device)"] = time_ms(lambda: step(dev), iters=10)
     _loss, decoded, lengths = step(dev)
@@ -1690,6 +1752,397 @@ def search_path(work, data_dir, lm_weights, lm_dir, kernels, card):
     return launches
 
 
+# -- phase 3f: the audio front end ------------------------------------------
+#
+# A FLAC writer for the synthetic corpora of phase 3f and of the port's
+# tests. It writes what the decoders in the repo read: a STREAMINFO block,
+# then frames of VERBATIM or FIXED (order 0-4, rice-coded residual, any
+# partition order, 4- or 5-bit parameters) subframes, mono or stereo
+# (independent, left/side, right/side or mid/side), 16-bit samples, with
+# the frame header's CRC-8 and the frame's CRC-16.
+
+
+def _crc_table(poly: int, width: int) -> list[int]:
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    table = []
+    for i in range(256):
+        c = i << (width - 8)
+        for _ in range(8):
+            c = ((c << 1) ^ poly) & mask if c & top else (c << 1) & mask
+        table.append(c)
+    return table
+
+
+_CRC8, _CRC16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+
+
+def _crc(data: bytes, table: list[int], width: int) -> int:
+    crc, mask = 0, (1 << width) - 1
+    for b in data:
+        crc = ((crc << 8) & mask) ^ table[(crc >> (width - 8)) ^ b]
+    return crc
+
+
+class _Bits:
+    """MSB-first bit fields, packed with numpy."""
+
+    def __init__(self):
+        self.values, self.widths = [], []
+
+    def add(self, values, width) -> None:
+        values = np.atleast_1d(np.asarray(values, np.int64))
+        width = np.broadcast_to(np.asarray(width, np.int64), values.shape)
+        mask = np.where(width >= 63, -1, (np.int64(1) << np.minimum(width, 62)) - 1)
+        self.values.append((values & mask).astype(np.uint64))
+        self.widths.append(width)
+
+    def tobytes(self) -> bytes:
+        """The fields, zero-padded to a whole byte."""
+        values, widths = np.concatenate(self.values), np.concatenate(self.widths)
+        idx = np.repeat(np.arange(len(widths)), widths)
+        start = np.cumsum(widths) - widths
+        k = np.arange(int(widths.sum())) - np.repeat(start, widths)
+        shift = (widths[idx] - 1 - k).astype(np.uint64)
+        bits = ((values[idx] >> shift) & np.uint64(1)).astype(np.uint8)
+        return np.packbits(bits).tobytes()
+
+
+def _utf8_number(n: int) -> bytes:
+    """A frame number in FLAC's extended UTF-8 code."""
+    if n < 0x80:
+        return bytes([n])
+    extra = 1
+    while n >= 1 << (5 * extra + 6):
+        extra += 1
+    out = [0x80 | ((n >> (6 * i)) & 0x3F) for i in range(extra)][::-1]
+    first = ((0xFF << (7 - extra)) & 0xFF) | (n >> (6 * extra))
+    return bytes([first] + out)
+
+
+def _rice(bits: _Bits, residual: np.ndarray, order: int, block: int,
+          partition_order: int, param_bits: int) -> None:
+    """The residual section: coding method, partition order and, for each
+    partition, its rice parameter and codes (unary quotient, then the low
+    bits), the parameter chosen from the partition's mean."""
+    u = np.where(residual >= 0, 2 * residual, -2 * residual - 1)
+    bits.add(param_bits - 4, 2)
+    bits.add(partition_order, 4)
+    per = block >> partition_order
+    escape = (1 << param_bits) - 1
+    start = 0
+    for p in range(1 << partition_order):
+        part = u[start:start + per - (order if p == 0 else 0)]
+        start += len(part)
+        mean = float(part.mean()) if len(part) else 0.0
+        k = int(min(escape - 1, max(0, math.floor(math.log2(mean + 1)))))
+        bits.add(k, param_bits)
+        if len(part):
+            q = part >> k
+            fields = np.stack([np.ones_like(q), part & ((1 << k) - 1)], 1).ravel()
+            widths = np.stack([q + 1, np.full_like(q, k)], 1).ravel()
+            bits.add(fields, widths)
+
+
+def _subframe(bits: _Bits, x: np.ndarray, bps: int, subframe: str, order: int,
+              partition_order: int, param_bits: int) -> None:
+    block = len(x)
+    if subframe == "verbatim" or block <= order:
+        bits.add(1 << 1, 8)  # zero pad bit, type 000001, no wasted bits
+        bits.add(x, bps)
+        return
+    bits.add((8 + order) << 1, 8)  # type 001xxx: FIXED of this order
+    bits.add(x[:order], bps)
+    po = partition_order
+    while po and (block % (1 << po) or (block >> po) <= order):
+        po -= 1
+    _rice(bits, np.diff(x, order), order, block, po, param_bits)
+
+
+def write_flac(path, pcm, sample_rate, subframe="fixed", order=2,
+               block_size=4096, partition_order=0, param_bits=4,
+               stereo="independent"):
+    """Write 16-bit PCM (int16 ``[n]``, or ``[n, 2]`` for stereo) as FLAC.
+
+    ``subframe`` is "fixed" (a FIXED predictor of ``order`` with a
+    rice-coded residual in ``2 ** partition_order`` partitions and
+    ``param_bits``-bit parameters) or "verbatim"; ``stereo`` is
+    "independent", "left_side", "right_side" or "mid_side". Every decoder
+    in the repo reads the file as mono float32 ``mean(channels) / 32768``.
+    """
+    pcm = np.asarray(pcm, np.int64)
+    channels = 1 if pcm.ndim == 1 else pcm.shape[1]
+    pcm = pcm.reshape(len(pcm), channels)
+    n = len(pcm)
+    info = _Bits()
+    for value, width in ((block_size, 16), (block_size, 16), (0, 24), (0, 24),
+                         (sample_rate, 20), (channels - 1, 3), (15, 5),
+                         (n >> 32, 4), (n & 0xFFFFFFFF, 32), (0, 64), (0, 64)):
+        info.add(value, width)
+    out = [b"fLaC", bytes([0x80, 0, 0, 34]), info.tobytes()]
+    code = {"independent": channels - 1, "left_side": 8, "right_side": 9,
+            "mid_side": 10}[stereo if channels == 2 else "independent"]
+    for number, first in enumerate(range(0, n, block_size)):
+        block = pcm[first:first + block_size]
+        left, right = block.T if channels == 2 else (block[:, 0], None)
+        if channels == 1:
+            subs = [(left, 16)]
+        elif code == 1:
+            subs = [(left, 16), (right, 16)]
+        elif code == 8:
+            subs = [(left, 16), (left - right, 17)]
+        elif code == 9:
+            subs = [(left - right, 17), (right, 16)]
+        elif code == 10:
+            subs = [((left + right) >> 1, 16), (left - right, 17)]
+        head = _Bits()
+        head.add(0x3FFE, 14)
+        head.add(0, 2)  # reserved, fixed block size
+        head.add(7, 4)  # block size - 1 in 16 bits after the frame number
+        head.add(0, 4)  # sample rate from STREAMINFO
+        head.add(code, 4)
+        head.add(4, 3)  # 16 bits a sample
+        head.add(0, 1)
+        header = head.tobytes() + _utf8_number(number)
+        header += (len(block) - 1).to_bytes(2, "big")
+        header += bytes([_crc(header, _CRC8, 8)])
+        body = _Bits()
+        for x, bps in subs:
+            _subframe(body, x, bps, subframe, order, partition_order, param_bits)
+        frame = header + body.tobytes()
+        out.append(frame + _crc(frame, _CRC16, 16).to_bytes(2, "big"))
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+AUDIO_SR = 16000  # LibriSpeech's rate: the device resample 16000 -> 22050 runs
+AUDIO_UTTERANCES = 64
+# 4.4-7.4 s: 600-1024 frames at 22050 Hz, so every utterance falls in the
+# 1024-frame bucket
+AUDIO_SECONDS = (4.4, 7.4)
+AUDIO_LETTERS = (60, 200)
+AUDIO_LM_STEPS = 1
+
+
+def synthetic_speech(rng, n, sample_rate=AUDIO_SR) -> np.ndarray:
+    """``n`` int16 samples of voiced-speech-like audio from ``rng``: eight
+    harmonics of a wandering pitch (100-250 Hz), a syllable-rate envelope
+    (3-5 Hz) and a noise floor about 30 dB down."""
+    t = np.arange(n) / sample_rate
+    f0 = rng.uniform(100, 250) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 9))
+    envelope = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(3, 5) * t + rng.uniform(0, 6.3)))
+    x = 0.3 * envelope * voiced / np.abs(voiced).max() + 0.01 * rng.randn(n)
+    return np.clip(np.rint(x * 32767), -32768, 32767).astype(np.int16)
+
+
+def transcript_words(rng, letters):
+    """A transcript of about ``letters`` characters: words of 2-9 letters."""
+    words, size = [], 0
+    while size < letters:
+        words.append("".join(rng.choice(LM_LETTERS, size=rng.randint(2, 10))))
+        size += len(words[-1]) + 1
+    return " ".join(words).upper()
+
+
+def write_flac_corpus(data_dir, split, n, seed=0, seconds=AUDIO_SECONDS,
+                      letters=AUDIO_LETTERS, sample_rate=AUDIO_SR, **flac_options):
+    """``n`` FLAC utterances of ``seconds`` at ``sample_rate`` under
+    ``<data_dir>/<split>/<speaker>/<chapter>/`` with their ``*.trans.txt``
+    (``letters`` letters each), LibriSpeech's layout; the corpus sets are
+    marked as extracted, so ``preprocess`` downloads nothing."""
+    from speecht_tpu_torch import corpus
+
+    rng = np.random.RandomState(seed)
+    chapter = os.path.join(data_dir, split, f"{seed + 19}", "198")
+    os.makedirs(chapter, exist_ok=True)
+    lines = []
+    for i in range(n):
+        uid = f"{seed + 19}-198-{i:04d}"
+        samples = int(rng.uniform(*seconds) * sample_rate)
+        write_flac(os.path.join(chapter, uid + ".flac"),
+                   synthetic_speech(rng, samples, sample_rate), sample_rate,
+                   **flac_options)
+        lines.append(f"{uid} {transcript_words(rng, rng.randint(letters[0], letters[1] + 1))}")
+    with open(os.path.join(chapter, f"{seed + 19}-198.trans.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for set_type, set_name in corpus.DATA_SETS:
+        os.makedirs(os.path.join(data_dir, set_type, set_name), exist_ok=True)
+
+
+@contextlib.contextmanager
+def npz_reads():
+    """Counts the cache files read by the native reader."""
+    from speecht_tpu_torch import native
+
+    count = [0]
+    read = native.npz_load_sample
+
+    def counted(path):
+        out = read(path)
+        count[0] += 1
+        return out
+
+    native.npz_load_sample = counted
+    try:
+        yield count
+    finally:
+        native.npz_load_sample = read
+
+
+def audio_path(work, weights, lm_weights, lm_dir, kernels, card):
+    """Phase 3f: ``preprocess`` (host, then ``--device``), ``evaluate
+    --from-audio`` (greedy and with the LM) and ``evaluate`` on the cache
+    ``preprocess --device`` wrote, on a synthetic 16 kHz FLAC corpus."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    host_dir = os.path.join(work, "audio_host", "data")
+    device_dir = os.path.join(work, "audio_device", "data")
+    t0 = time.perf_counter()
+    write_flac_corpus(host_dir, "test", AUDIO_UTTERANCES, seed=0)
+    write_flac_corpus(host_dir, "dev", AUDIO_UTTERANCES, seed=1)
+    shutil.copytree(host_dir, device_dir)
+    print(f"audio path: wrote {2 * AUDIO_UTTERANCES} FLAC utterances "
+          f"({AUDIO_SR} Hz, 16-bit mono, {AUDIO_SECONDS[0]}-{AUDIO_SECONDS[1]} s, "
+          f"FIXED order 2, rice) in {time.perf_counter() - t0:.1f} s")
+
+    common = ["--train-dir", os.path.join(work, "train"),
+              "--log-dir", os.path.join(work, "log")]
+    for label, data_dir, extra in (("host", host_dir, []),
+                                   ("--device", device_dir, ["--device"])):
+        argv = ["preprocess", "--test-only", "--data-dir", data_dir, *common, *extra]
+        t0 = time.perf_counter()
+        if extra:
+            run_cli(argv)
+        else:
+            # its own process, as a user runs it: the spawned pool's workers
+            # then import the package and numpy, not this script and torch
+            proc = subprocess.run([sys.executable, "-m", "speecht_tpu_torch", *argv],
+                                  timeout=600, capture_output=True, text=True)
+            check(proc.returncode == 0, f"preprocess failed: {proc.stderr[-3000:]}")
+        seconds = time.perf_counter() - t0
+        written = os.listdir(os.path.join(data_dir, "preprocessed-power", "test"))
+        check(len(written) == AUDIO_UTTERANCES,
+              f"preprocess {label} wrote {len(written)} of {AUDIO_UTTERANCES} files")
+        where = ("python -m speecht_tpu_torch, a pool of one spawned process a core"
+                 if not extra else "in this process, the card already initialised")
+        print(f"audio path: preprocess {label} ({where}; {os.cpu_count()} cores): "
+              f"{AUDIO_UTTERANCES} files in {seconds!r} s, "
+              f"{AUDIO_UTTERANCES / seconds!r} files/s; on {card}")
+
+    def evaluate(label, data_dir, split, weights_dir, *extra, steps=1):
+        argv = ["evaluate", f"--{split}", "--no-save", "--data-dir", data_dir, *common,
+                "--reference-weights", weights_dir, "--batch-size", str(MAIN_BATCH),
+                *extra]
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        lines = out.splitlines()
+        losses = [float(ln.split()[3]) for ln in lines
+                  if ln.startswith("validation average loss")]
+        print(f"audio path: evaluate {label}: " + " | ".join(
+            lines[lines.index("Global statistics"):]))
+        check(stats.decodings_counter == AUDIO_UTTERANCES,
+              f"evaluate {label} tracked {stats.decodings_counter} of {AUDIO_UTTERANCES}")
+        check(len(losses) == steps and all(math.isfinite(x) and 0 < x < 1e29 for x in losses),
+              f"evaluate {label}: losses not well formed: {losses}")
+        check(0 <= stats.global_letter_error_rate < 100, f"evaluate {label}: LER not well formed")
+        check(launches["ctc_alpha"] == steps,
+              f"evaluate {label} launched ctc_alpha {launches['ctc_alpha']} times "
+              f"for {steps} batches")
+        check(launches["ctc_beta"] == 0 and launches["conv0"] == 0,
+              f"evaluate {label} launched other kernels: {launches}")
+        print(f"audio path: evaluate {label} B={MAIN_BATCH} x {steps} batch: losses {losses}; "
+              f"kernel launches {launches}; whole run with set-up {wall * 1e3 / steps!r} "
+              f"ms/batch, {AUDIO_UTTERANCES / wall!r} utt/s; on {card}")
+        return launches, out
+
+    # warm-up (cuFFT plans, cuDNN plans at this bucket)
+    run_cli(["evaluate", "--test", "--no-save", "--data-dir", host_dir, *common,
+             "--reference-weights", weights, "--batch-size", str(MAIN_BATCH),
+             "--from-audio"])
+    greedy, out = evaluate("--from-audio", host_dir, "test", weights, "--from-audio")
+    check("resampling to 22050 Hz on device" in out,
+          "evaluate --from-audio did not take the device resample")
+    lm, _out = evaluate("--from-audio --language-model", host_dir, "dev", lm_weights,
+                        "--from-audio", "--language-model", lm_dir,
+                        steps=AUDIO_LM_STEPS)
+    with npz_reads() as reads:
+        cached, _out = evaluate("on the --device cache", device_dir, "test", weights)
+    # the input-size probe reads one file before the batch reads them all
+    check(reads[0] == AUDIO_UTTERANCES + 1,
+          f"evaluate read {reads[0]} cache files natively, not 1 + {AUDIO_UTTERANCES}")
+    print(f"audio path: evaluate read the --device cache's {AUDIO_UTTERANCES} files "
+          "(and the input-size probe's one) through the native npz reader")
+    audio_breakdown(host_dir, weights, card)
+    print(f"audio path: phase 3f wall time {time.perf_counter() - t_phase:.1f} s")
+    return greedy, lm, cached, host_dir, device_dir
+
+
+def audio_samples(data_dir, split="test", n=MAIN_BATCH):
+    """``n`` utterances of a FLAC split, decoded at their own rate."""
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    return list(SpeechCorpusReader(data_dir).load_raw_samples(
+        split, limit_count=n, seed=0, sample_rate=AUDIO_SR))
+
+
+def audio_bucket():
+    """The evaluate loader's sample bucket at 16 kHz (1024-frame steps
+    of 256 frames at 22050 Hz)."""
+    from speecht_tpu_torch.native import DEFAULT_SR
+    from speecht_tpu_torch.ops import resample as resample_mod
+
+    return resample_mod.input_bucket(160 * 256, AUDIO_SR, DEFAULT_SR)
+
+
+def audio_breakdown(data_dir, weights, card):
+    """Where one from-audio batch's time goes: each host stage alone on the
+    host clock, the front end and the eval step on the card by CUDA events."""
+    from speecht_tpu_torch.data import features_device
+    from speecht_tpu_torch.data.pipeline import build_audio_batch, to_device
+    from speecht_tpu_torch.evaluation import Evaluation
+    from speecht_tpu_torch.metrics import EvalStatistics
+    from speecht_tpu_torch.train.step import make_audio_eval_step
+
+    stages = {}
+    t0 = time.perf_counter()
+    samples = audio_samples(data_dir)
+    t1 = time.perf_counter()
+    batch = build_audio_batch(samples, audio_bucket())
+    t2 = time.perf_counter()
+    dev = to_device(batch, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stages[f"FLAC decode of {len(samples)} files at 16 kHz (host)"] = (t1 - t0) * 1e3
+    stages["build_audio_batch (host)"] = (t2 - t1) * 1e3
+    stages["int16 cast + pin + H2D"] = (t3 - t2) * 1e3
+    front_end = features_device.make_front_end("power", wire_sr=AUDIO_SR)
+    step = make_audio_eval_step(lm_model(weights, torch.device("cuda")), front_end)
+    with torch.inference_mode():
+        stages["front end on the card (resample + DSP)"] = time_ms(
+            lambda: front_end(dev.audio, dev.num_samples), iters=10)
+    stages["eval step on the card (front end + model + CTC + decode)"] = time_ms(
+        lambda: step(dev), iters=10)
+    _loss, decoded, lengths = step(dev)
+    decoded, lengths = decoded.cpu().numpy(), lengths.cpu().numpy()
+    t4 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        Evaluation._track_batch(EvalStatistics(), batch, decoded, lengths, verbose=True)
+    stages["metrics + prints (host)"] = (time.perf_counter() - t4) * 1e3
+    print(
+        f"audio breakdown B={MAIN_BATCH} S={batch.audio.shape[1]} samples at "
+        f"{AUDIO_SR} Hz: " + ", ".join(f"{k} {v!r} ms" for k, v in stages.items())
+        + f"; on {card}"
+    )
+
+
 # -- phase 4: one batch, card vs CPU ----------------------------------------
 
 
@@ -1843,6 +2296,117 @@ def parity_beam(data_dir, lm_weights, lm_dir, devices=("cuda", "cpu")):
     check(logp_ratio <= 1.0, "beam parity: kept log-probs disagree")
 
 
+# phase 4e: the front end, card vs CPU, each float32. On this synthetic
+# speech the float32 features are within 1e-4 of the host's float64 DSP
+# (tests/test_torch_features.py), so two float32 sides may differ by
+# about 2e-4; 1e-3 allows 5x more. The resample alone is held to JAX's own
+# test tolerance against the host resampler (1e-5), which a product
+# rounded to TF32 (10-bit mantissas: about 1e-4 here) misses.
+FRONT_END_RTOL, FRONT_END_ATOL = 1e-3, 1e-3
+RESAMPLE_ATOL = 1e-5
+# the --device cache against the host cache: JAX's device-against-host
+# feature tolerance (tests/test_features.py) plus one bfloat16 spacing of
+# the value for the bf16 download
+CACHE_RTOL, CACHE_ATOL = 1e-2, 1e-2
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """TF32 on for float32 matmuls process-wide (the setting phase 4e
+    proves the front end ignores), restored after."""
+    matmul = torch.backends.cuda.matmul
+    name, on, off = (("fp32_precision", "tf32", "ieee")
+                     if hasattr(matmul, "fp32_precision")
+                     else ("allow_tf32", True, False))
+    setattr(matmul, name, on)
+    try:
+        yield f"torch.backends.cuda.matmul.{name} = {on!r}"
+    finally:
+        setattr(matmul, name, off)
+
+
+def parity_audio(host_dir, device_dir, weights):
+    """Phase 4e: the front end and the from-audio eval step on the card and
+    on the CPU, and the --device cache against the host cache."""
+    from speecht_tpu_torch.data import features_device
+    from speecht_tpu_torch.data.pipeline import build_audio_batch, to_device
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+    from speecht_tpu_torch.native import DEFAULT_SR
+    from speecht_tpu_torch.ops import resample as resample_mod
+    from speecht_tpu_torch.train.step import make_audio_eval_step
+
+    batch = build_audio_batch(audio_samples(host_dir, n=8), audio_bucket(),
+                              pad_to_batch=9)
+    audio = {name: to_device(batch, torch.device(name)) for name in ("cuda", "cpu")}
+    with tf32_matmuls() as setting, torch.inference_mode():
+        x = {name: b.audio.float() / 32768.0 for name, b in audio.items()}
+        with resample_mod.float32_matmuls():
+            y = {name: resample_mod.batch_resample(v, AUDIO_SR, DEFAULT_SR).cpu()
+                 for name, v in x.items()}
+        err = float((y["cuda"] - y["cpu"]).abs().max())
+        print(f"parity audio: {setting} process-wide; resample {AUDIO_SR} -> "
+              f"{DEFAULT_SR} B=9 (one padding row) card vs CPU max abs diff {err!r} "
+              f"(tolerance {RESAMPLE_ATOL})")
+        check(err <= RESAMPLE_ATOL, "parity audio: the resample differs card vs CPU")
+        for feature_type in ("power", "mfcc"):
+            front_end = features_device.make_front_end(feature_type, wire_sr=AUDIO_SR)
+            (fg, lg), (fc, lc) = (
+                [t.cpu() for t in front_end(b.audio, b.num_samples)]
+                for b in (audio["cuda"], audio["cpu"]))
+            nan_equal = torch.equal(fg.isnan(), fc.isnan())
+            ok = ~fc.isnan()
+            diff = (fg[ok] - fc[ok]).abs()
+            share = float((diff / (FRONT_END_ATOL + FRONT_END_RTOL * fc[ok].abs())).max())
+            print(f"parity audio: {feature_type} features {tuple(fg.shape)} card vs CPU "
+                  f"max abs diff {float(diff.max())!r}, at most {share!r} of the tolerance "
+                  f"{FRONT_END_ATOL} + {FRONT_END_RTOL} x |value|; frame lengths equal "
+                  f"{torch.equal(lg, lc)}; NaN where the CPU has NaN (the padding row) "
+                  f"{nan_equal}")
+            check(torch.equal(lg, lc) and nan_equal and share <= 1.0,
+                  f"parity audio: {feature_type} features differ card vs CPU")
+
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    for name in ("cuda", "cpu"):
+        model = lm_model(weights, torch.device(name), "float32")
+        step = make_audio_eval_step(
+            model, features_device.make_front_end("power", wire_sr=AUDIO_SR))
+        loss, decoded, lengths = step(audio[name])
+        outs[name] = (float(loss), decoded.cpu().numpy(), lengths.cpu().numpy())
+    (lg, dg, ng), (lc, dc, nc) = outs["cuda"], outs["cpu"]
+    total = sum(int(max(a, b)) for a, b in zip(ng, nc))
+    same = sum(int((dg[i, :max(ng[i], nc[i])] == dc[i, :max(ng[i], nc[i])]).sum())
+               for i in range(len(ng)))
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"parity audio: eval step from audio, float32, TF32 off: loss cuda {lg!r} "
+          f"cpu {lc!r} rel diff {loss_rel!r} (tolerance {PARITY_LOSS_RTOL}); decoded "
+          f"tokens equal {same}/{total} (at least {PARITY_MIN_TOKEN_SHARE}); padding "
+          f"row decoded lengths {ng[-1]} / {nc[-1]}")
+    check(loss_rel <= PARITY_LOSS_RTOL, "parity audio: card and CPU losses disagree")
+    check(same >= PARITY_MIN_TOKEN_SHARE * max(total, 1),
+          "parity audio: card and CPU decodes disagree")
+    check(ng[-1] == nc[-1] == 0, "parity audio: the padding row was decoded")
+
+    host = SpeechCorpusReader(host_dir)._get_directory("power", "test")
+    device = SpeechCorpusReader(device_dir)._get_directory("power", "test")
+    names = sorted(os.listdir(host))
+    check(names == sorted(os.listdir(device)), "the two caches hold other files")
+    worst = 0.0
+    for name in names:
+        with np.load(os.path.join(host, name)) as a, np.load(os.path.join(device, name)) as b:
+            check(a["audio_fragments"].shape == b["audio_fragments"].shape
+                  and np.array_equal(a["transcript"], b["transcript"]),
+                  f"cache {name}: shapes or transcripts differ")
+            ref = torch.from_numpy(a["audio_fragments"])
+            got = torch.from_numpy(b["audio_fragments"])
+            bound = CACHE_ATOL + CACHE_RTOL * ref.abs() + bf16_spacing(ref)
+            worst = max(worst, float(((got - ref).abs() / bound).max()))
+    print(f"parity audio: the --device cache against the host cache, {len(names)} "
+          f"files: at most {worst!r} of the tolerance {CACHE_ATOL} + {CACHE_RTOL} x "
+          "|value| + one bfloat16 spacing")
+    check(worst <= 1.0, "parity audio: the --device cache differs from the host cache")
+
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -1889,9 +2453,18 @@ def main() -> int:
         cuda_build.build([k.name for k in kernels])
         print(f"kernel build: {time.perf_counter() - t0:.1f} s for {[k.name for k in kernels]}")
         host_lib = host_build.result()
-    print(f"host library build (g++, beam search and n-gram LM): "
-          f"{time.perf_counter() - t0:.1f} s from the start of the builds, "
-          f"{os.path.basename(host_lib)}")
+    print(f"host library build (g++: FLAC decode, resample, npz reader, beam search "
+          f"and n-gram LM): {time.perf_counter() - t0:.1f} s from the start of the "
+          f"builds, {os.path.basename(host_lib)}")
+    exported = sorted(
+        line.split()[-1] for line in subprocess.run(
+            ["nm", "-D", "--defined-only", host_lib], capture_output=True, text=True,
+            check=True, timeout=60,
+        ).stdout.splitlines() if line.split()[1] == "T"
+    )
+    print(f"host library exports: {exported}")
+    check(exported and all(name.startswith("stt_") for name in exported),
+          f"the host library exports more than its stt_ C API: {exported}")
     for k in kernels:
         with open(cuda_build.log_path(k.name)) as f:
             for line in f:
@@ -1951,7 +2524,8 @@ def main() -> int:
     print("kernel launches in the comparisons: "
           + str({k.name: k.launches for k in kernels}))
 
-    # 3. evaluate; 3b. train; 3c. the conv0 path; 4. and 4b. card vs CPU
+    # 3. evaluate; 3b. train; 3c. the conv0 path; 3d, 3e. the LM paths; 3f.
+    # the audio front end; 4-4e. card vs CPU
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         eval_launches, data_dir, weights, steady_ms = main_path(work, kernels, card)
         breakdown(data_dir, weights, steady_ms, card)
@@ -1969,7 +2543,10 @@ def main() -> int:
         parity(data_dir, weights)
         parity_train(data_dir, weights)
         parity(data_dir, weights, conv0_path=True)
+        audio_greedy, audio_lm, audio_cached, host_dir, device_dir = audio_path(
+            work, weights, lm_weights, lm_dir, kernels, card)
         parity_beam(data_dir, lm_weights, lm_dir)
+        parity_audio(host_dir, device_dir, weights)
 
     # 5. kernels line, then the result line
     alpha_entry = kernel_entry(
@@ -1980,6 +2557,9 @@ def main() -> int:
         "evaluate": eval_launches["ctc_alpha"], "train": train_launches["ctc_alpha"],
         "evaluate --language-model": lm_launches["ctc_alpha"],
         "search": search_launches["ctc_alpha"],
+        "evaluate --from-audio": audio_greedy["ctc_alpha"],
+        "evaluate --from-audio --language-model": audio_lm["ctc_alpha"],
+        "evaluate (the preprocess --device cache)": audio_cached["ctc_alpha"],
     }
     alpha_entry["history"] = alpha_main["history"]
     alpha_entry["largest_bucket"] = {
@@ -1991,6 +2571,8 @@ def main() -> int:
     )
     beta_entry["launches_by_path"] = {
         "evaluate": eval_launches["ctc_beta"], "train": train_launches["ctc_beta"],
+        "evaluate --from-audio": audio_greedy["ctc_beta"],
+        "evaluate --from-audio --language-model": audio_lm["ctc_beta"],
     }
     beta_entry["largest_bucket"] = {
         key: beta_largest[key] for key in ("shape", "ms", "library_ms", "bound_ms")
@@ -2006,6 +2588,8 @@ def main() -> int:
         "evaluate": conv0_eval["conv0"], "train": conv0_train["conv0"],
         "evaluate (default path)": eval_launches["conv0"],
         "train (default path)": train_launches["conv0"],
+        "evaluate --from-audio": audio_greedy["conv0"],
+        "evaluate --from-audio --language-model": audio_lm["conv0"],
     }
     print(f"card: {card}")
     print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry]}))

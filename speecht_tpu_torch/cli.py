@@ -1,16 +1,22 @@
-"""Command line of the port: ``python -m speecht_tpu_torch {train,evaluate,search} ...``.
+"""Command line of the port: ``python -m speecht_tpu_torch {preprocess,train,evaluate,search} ...``.
 
-Counterpart of ``speecht_tpu/cli.py``. The ``train``, ``evaluate`` and
-``search`` subcommands have the JAX package's base and per-command flags,
-with the same names and defaults, plus ``--device {cuda,cpu}`` (default
-``cuda``; without a card it raises). ``train`` has every flag of the JAX
-``train`` on one device (``--spec-augment``, ``--profile-steps`` and
-``--verbose-summaries`` among them); ``evaluate --language-model`` and
-``search`` run the LM-fused host beam. Paths of the JAX package that the
-port does not have yet raise an error that names the flag; none is
-ignored: ``--device-beam`` (and so ``--rescore``), ``--from-audio``,
-``--seq-parallel`` and ``--data-parallel``/``--model-parallel`` above 1.
-The other subcommands come with later parts of the port.
+Counterpart of ``speecht_tpu/cli.py``. The ``preprocess``, ``train``,
+``evaluate`` and ``search`` subcommands have the JAX package's base and
+per-command flags, with the same names and defaults, plus ``--device``.
+On ``train``, ``evaluate`` and ``search`` it is ``--device {cuda,cpu}``
+(default ``cuda``; without a card it raises). On ``preprocess`` it keeps
+the JAX flag's meaning, the DSP on the accelerator: ``preprocess`` alone
+runs the host DSP and touches no card, ``preprocess --device`` runs the
+DSP on the card and ``preprocess --device cpu`` runs the same torch DSP
+on the CPU. ``train`` has every flag of the JAX ``train`` on one device
+(``--spec-augment``, ``--profile-steps`` and ``--verbose-summaries`` among
+them); ``evaluate --language-model`` and ``search`` run the LM-fused host
+beam; ``evaluate --from-audio`` decodes the FLACs and runs the front end
+on the device. Paths of the JAX package that the port does not have yet
+raise an error that names the flag; none is ignored: ``--device-beam``
+(and so ``--rescore``), ``--seq-parallel`` and
+``--data-parallel``/``--model-parallel`` above 1. ``record`` and
+``export`` come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -28,12 +34,15 @@ class CLI:
             help="sub-command help", dest="command"
         )
         self.base_parser = self._create_base_parser()
+        self._add_preprocess_parser()
         self._add_training_parser()
         self._add_evaluation_parser()
         self._add_parameter_search_parser()
         self._parsed = None
 
-    def _create_base_parser(self) -> argparse.ArgumentParser:
+    def _create_base_parser(self, device: bool = True) -> argparse.ArgumentParser:
+        """The flags every subcommand shares; ``device=False`` leaves out
+        ``--device``, which ``preprocess`` defines with its own meaning."""
         p = argparse.ArgumentParser(add_help=False)
         p.add_argument(
             "--mfcc", dest="feature_type", action="store_const", const="mfcc",
@@ -88,11 +97,12 @@ class CLI:
             help="Skip cached utterances longer than this many feature "
             "frames (0 = unlimited).",
         )
-        p.add_argument(
-            "--device", dest="device", type=str, default="cuda",
-            choices=["cuda", "cpu"],
-            help="Device to run on; cuda raises when no card is present.",
-        )
+        if device:
+            p.add_argument(
+                "--device", dest="device", type=str, default="cuda",
+                choices=["cuda", "cpu"],
+                help="Device to run on; cuda raises when no card is present.",
+            )
         p.set_defaults(feature_type="power")
         return p
 
@@ -127,6 +137,24 @@ class CLI:
         )
         parser.add_argument(
             "--rescore", dest="rescore_n", type=int, default=0,
+        )
+
+    def _add_preprocess_parser(self):
+        p = self.subparsers.add_parser(
+            "preprocess", help="Preprocess and cache all audio.",
+            parents=[self._create_base_parser(device=False)],
+        )
+        p.add_argument("--train-only", dest="train_only", action="store_true")
+        p.add_argument("--test-only", dest="test_only", action="store_true")
+        p.add_argument("--dev-only", dest="dev_only", action="store_true")
+        p.add_argument("--num-workers", dest="num_workers", type=int, default=0)
+        p.add_argument(
+            "--device", dest="device", nargs="?", const="cuda", default=None,
+            choices=["cuda", "cpu"],
+            help="Run the DSP (resample, framing, FFT, mel, normalize, MFCC "
+            "deltas) in batches on the card (or, given cpu, in torch on the "
+            "CPU) instead of the per-file host DSP; the npz cache layout is "
+            "identical.",
         )
 
     def _add_training_parser(self):
@@ -208,7 +236,9 @@ class CLI:
         p.add_argument("--step-count", dest="step_count", type=int, default=0)
         p.add_argument(
             "--from-audio", dest="from_audio", action="store_true",
-            help="On-device front end from flacs (not ported yet).",
+            help="Skip the feature cache: decode the flacs and run the "
+            "whole front end (resample, framing, FFT, mel, normalize) on "
+            "the device.",
         )
         p.add_argument(
             "--reference-weights", dest="reference_weights", type=str,
@@ -276,8 +306,6 @@ class CLI:
         unported = []
         if getattr(flags, "device_beam", False):
             unported.append("--device-beam")
-        if getattr(flags, "from_audio", False):
-            unported.append("--from-audio")
         if getattr(flags, "seq_parallel", 0) > 1:
             unported.append("--seq-parallel")
         if flags.data_parallel > 1 or flags.model_parallel > 1:
@@ -303,6 +331,10 @@ class CLI:
             return None
         self._check_ported()
         self._ensure_directories()
+        if self.parsed.command == "preprocess":
+            from speecht_tpu_torch.preprocessing import Preprocessing
+
+            return Preprocessing(self.parsed).run()
         if self.parsed.command == "train":
             from speecht_tpu_torch.training import Training
 

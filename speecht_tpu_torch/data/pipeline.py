@@ -5,14 +5,17 @@ Counterpart of ``speecht_tpu/data/pipeline.py`` (single process):
 - :func:`build_batch` pads features to the batch's longest utterance,
   rounded up to a time bucket, and labels to a width that is a function of
   that bucket, so the set of batch shapes stays small.
+  :func:`build_audio_batch` does the same for raw audio (``--from-audio``),
+  in samples.
 - :func:`batch_iterator` groups a sample generator into such batches,
   optionally by length.
 - :class:`PrefetchLoader` builds batches on a host thread. Features are
-  cast to the transfer dtype (bf16 by default), placed in pinned memory
-  and copied to the card with ``non_blocking`` copies on a side stream,
-  so the copy of batch N+1 overlaps the compute of batch N. It counts
-  its stalls (the consumer waiting on an empty queue) for the training
-  loop's ``prefetch_stalls`` scalars.
+  cast to the transfer dtype (bf16 by default) and raw audio to int16
+  (:func:`audio_to_int16`), placed in pinned memory and copied to the card
+  with ``non_blocking`` copies on a side stream, so the copy of batch N+1
+  overlaps the compute of batch N. It counts its stalls (the consumer
+  waiting on an empty queue) for the training loop's ``prefetch_stalls``
+  scalars.
 """
 
 from __future__ import annotations
@@ -35,6 +38,16 @@ class Batch:
 
     features: np.ndarray  # [B, T, F] float32
     seq_lengths: np.ndarray  # [B] int32 (valid input frames; 0 = padding row)
+    labels: np.ndarray  # [B, L] int32 padded with PAD_ID
+    label_lengths: np.ndarray  # [B] int32
+
+
+@dataclasses.dataclass
+class AudioBatch:
+    """One padded raw-audio batch for the device front end."""
+
+    audio: np.ndarray  # [B, S] float32 zero-padded samples (int16 on the wire)
+    num_samples: np.ndarray  # [B] int32 (0 = padding row)
     labels: np.ndarray  # [B, L] int32 padded with PAD_ID
     label_lengths: np.ndarray  # [B] int32
 
@@ -82,6 +95,49 @@ def build_batch(
     return Batch(features, seq_lengths, labels, label_lengths)
 
 
+def build_audio_batch(
+    samples: list[tuple[np.ndarray, np.ndarray]],
+    sample_bucket: int = 160 * 256,
+    label_bucket: int | None = None,
+    pad_to_batch: int = 0,
+) -> AudioBatch:
+    """Assemble (raw audio, transcript) pairs into a padded AudioBatch.
+
+    Sample counts pad up to ``sample_bucket`` (the feature hop times the
+    frame bucket by default). The label width follows the frame bucket the
+    samples imply (hop 160) as in :func:`build_batch`.
+    """
+    n = len(samples)
+    num_samples = np.array([len(s[0]) for s in samples], dtype=np.int32)
+    label_lengths = np.array([len(s[1]) for s in samples], dtype=np.int32)
+    S = round_up(int(num_samples.max()), sample_bucket)
+    if label_bucket is None:
+        L = max(S // 160 // 4, round_up(int(label_lengths.max()), 32), 32)
+    else:
+        L = round_up(max(int(label_lengths.max()), 1), label_bucket)
+    B = max(n, pad_to_batch)
+
+    audio = np.zeros((B, S), dtype=np.float32)
+    labels = np.full((B, L), vocabulary.PAD_ID, dtype=np.int32)
+    for i, (wav, transcript) in enumerate(samples):
+        audio[i, : len(wav)] = wav
+        labels[i, : len(transcript)] = np.asarray(transcript, dtype=np.int32)
+    if B > n:
+        num_samples = np.pad(num_samples, (0, B - n))
+        label_lengths = np.pad(label_lengths, (0, B - n))
+    return AudioBatch(audio, num_samples, labels, label_lengths)
+
+
+def audio_to_int16(audio: np.ndarray) -> np.ndarray:
+    """The int16 audio wire, the one quantisation every producer uses.
+
+    Lossless for FLAC's 16-bit PCM (v / 32768 rounds back to v); a bf16
+    audio wire's -48 dB noise floor would corrupt low-energy mel bins. The
+    front end (``features_device.make_front_end``) undoes the scaling.
+    """
+    return np.clip(np.rint(audio * 32768.0), -32768, 32767).astype(np.int16)
+
+
 def batch_iterator(
     sample_generator: Iterator,
     batch_size: int,
@@ -90,12 +146,15 @@ def batch_iterator(
     max_steps: int | None = None,
     drop_remainder: bool = False,
     group_by_length: bool = False,
-) -> Iterator[Batch]:
+    batch_builder: Callable = build_batch,
+) -> Iterator:
     """Group a sample generator into padded batches.
 
-    ``group_by_length`` collects samples into per-time-bucket bins and
-    emits a batch when a bin fills; leftovers drain longest first. A
-    partial last batch is padded to ``batch_size`` unless
+    ``batch_builder`` is :func:`build_batch` (cached features) or
+    :func:`build_audio_batch` (raw audio; ``time_bucket`` is then in
+    samples). ``group_by_length`` collects samples into per-time-bucket
+    bins and emits a batch when a bin fills; leftovers drain longest
+    first. A partial last batch is padded to ``batch_size`` unless
     ``drop_remainder``. Iteration stops after ``max_steps`` batches.
     """
     steps = 0
@@ -105,13 +164,13 @@ def batch_iterator(
         for sample in sample_generator:
             bucket.append(sample)
             if len(bucket) == batch_size:
-                yield build_batch(bucket, time_bucket, label_bucket)
+                yield batch_builder(bucket, time_bucket, label_bucket)
                 bucket = []
                 steps += 1
                 if max_steps is not None and steps >= max_steps:
                     return
         if bucket and not drop_remainder:
-            yield build_batch(
+            yield batch_builder(
                 bucket, time_bucket, label_bucket, pad_to_batch=batch_size
             )
         return
@@ -121,7 +180,7 @@ def batch_iterator(
         key = round_up(max(len(sample[0]), 1), time_bucket)
         bins.setdefault(key, []).append(sample)
         if len(bins[key]) == batch_size:
-            yield build_batch(bins.pop(key), time_bucket, label_bucket)
+            yield batch_builder(bins.pop(key), time_bucket, label_bucket)
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 return
@@ -131,7 +190,7 @@ def batch_iterator(
             chunk, leftovers = leftovers[:batch_size], leftovers[batch_size:]
             if drop_remainder and len(chunk) < batch_size:
                 continue
-            yield build_batch(
+            yield batch_builder(
                 chunk, time_bucket, label_bucket, pad_to_batch=batch_size
             )
             steps += 1
@@ -143,30 +202,36 @@ _TRANSFER_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def to_device(
-    batch: Batch,
+    batch,
     device: torch.device,
     transfer_dtype: str = "bfloat16",
     stream: torch.cuda.Stream | None = None,
-) -> Batch:
-    """Host numpy Batch -> torch Batch on ``device``.
+):
+    """Host numpy Batch or AudioBatch -> the same batch of tensors on
+    ``device``.
 
     Features are cast to ``transfer_dtype`` on the host (round to nearest
-    even, as the JAX package's ml_dtypes cast). For a CUDA device every
-    array goes through pinned memory and a ``non_blocking`` copy on
-    ``stream``; the caller orders its own stream after that copy.
+    even, as the JAX package's ml_dtypes cast). Raw audio goes as int16
+    (:func:`audio_to_int16`) on the bf16 wire, as JAX casts it, and as
+    float32 on the float32 wire. For a CUDA device every array goes
+    through pinned memory and a ``non_blocking`` copy on ``stream``; the
+    caller orders its own stream after that copy.
     """
     arrays = {
-        "features": torch.from_numpy(batch.features).to(
-            _TRANSFER_DTYPES[transfer_dtype]
-        ),
-        "seq_lengths": torch.from_numpy(batch.seq_lengths),
-        "labels": torch.from_numpy(batch.labels),
-        "label_lengths": torch.from_numpy(batch.label_lengths),
+        f.name: torch.from_numpy(getattr(batch, f.name))
+        for f in dataclasses.fields(batch)
     }
+    if isinstance(batch, AudioBatch):
+        if transfer_dtype == "bfloat16":
+            arrays["audio"] = torch.from_numpy(audio_to_int16(batch.audio))
+    else:
+        arrays["features"] = arrays["features"].to(
+            _TRANSFER_DTYPES[transfer_dtype]
+        )
     if device.type != "cuda":
-        return Batch(**{k: v.to(device) for k, v in arrays.items()})
+        return type(batch)(**{k: v.to(device) for k, v in arrays.items()})
     with torch.cuda.stream(stream):
-        return Batch(
+        return type(batch)(
             **{
                 k: v.pin_memory().to(device, non_blocking=True)
                 for k, v in arrays.items()
@@ -202,8 +267,10 @@ class PrefetchLoader:
         max_steps: int | None = None,
         group_by_length: bool = False,
         transfer_dtype: str = "bfloat16",
+        batch_builder: Callable = build_batch,
     ):
         self._factory = generator_factory
+        self._batch_builder = batch_builder
         self._batch_size = batch_size
         self._device = device
         self._time_bucket = time_bucket
@@ -223,6 +290,7 @@ class PrefetchLoader:
                 self._time_bucket,
                 max_steps=self._max_steps,
                 group_by_length=self._group_by_length,
+                batch_builder=self._batch_builder,
             ):
                 if stop.is_set():
                     return

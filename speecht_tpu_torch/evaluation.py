@@ -1,11 +1,18 @@
-"""Evaluation executor: the cached-feature branch, greedy or beam decode.
+"""Evaluation executor: greedy or beam decode, from the cache or the audio.
 
 Counterpart of ``speecht_tpu/evaluation.py`` (``run``, ``make_decoder``,
-``_result_iterator``, ``_track_batch``, ``print_global_statistics``):
-runs the dev or test split (``--dev``/``--test``) for ``--step-count``
-batches (0 = the whole split), computes the loss and the greedy decode on
-the device, or with ``--language-model`` the loss and the blank collapse
-on the device and the LM-fused beam on the host (``ops/beam.py``), prints
+``_result_iterator``, ``_track_batch``, ``print_global_statistics``, and
+for ``--from-audio`` ``wire_sr``, ``determine_input_size``,
+``create_sample_generator`` and ``create_loader``; its eval step is
+``train/step.make_audio_eval_step``): runs the dev or test split
+(``--dev``/``--test``) for ``--step-count`` batches (0 = the whole split),
+computes the loss and the greedy decode on the device, or with
+``--language-model`` the loss and the blank collapse on the device and
+the LM-fused beam on the host (``ops/beam.py``). With ``--from-audio``
+the batches are FLAC audio decoded on the host at the corpus's own rate
+(when every file shares one with a polyphase plan to 22050 Hz; else
+resampled to 22050 on the host), shipped as int16, and the front end
+(resample, DSP) runs on the device ahead of the model. It prints
 per-sample ``expected:``/``decoded:`` lines with LED/LER/WED/WER, one
 ``validation average loss`` line per batch, then the global statistics.
 Unless ``--no-save``, ``eval_loss`` of the first batch goes to a
@@ -39,13 +46,84 @@ class Evaluation(DatasetExecutor):
     def dataset_name(self) -> str:
         return self.flags.dataset
 
+    @property
+    def from_audio(self) -> bool:
+        return bool(getattr(self.flags, "from_audio", False))
+
+    @property
+    def wire_sr(self) -> int:
+        """The rate ``--from-audio`` ships the audio at, probed once: the
+        corpus's own rate when every file's STREAMINFO header gives the
+        same one and it has a polyphase plan to 22050 Hz (the resample then
+        runs on the device), else 22050 (the host resamples)."""
+        if getattr(self, "_wire_sr", None) is None:
+            from speecht_tpu_torch.native import DEFAULT_SR
+            from speecht_tpu_torch.ops import resample as resample_mod
+
+            native_sr = self.reader.probe_native_rate(self.flags.dataset)
+            if (
+                native_sr is not None
+                and native_sr != DEFAULT_SR
+                and resample_mod.is_rational(native_sr, DEFAULT_SR)
+            ):
+                self._wire_sr = native_sr
+                print(
+                    f"from-audio: decoding at native {native_sr} Hz; "
+                    f"resampling to {DEFAULT_SR} Hz on device"
+                )
+            else:
+                self._wire_sr = DEFAULT_SR
+        return self._wire_sr
+
+    def determine_input_size(self) -> int:
+        if self.from_audio:
+            from speecht_tpu_torch.data.features import feature_size
+
+            return feature_size(self.flags.feature_type)
+        return super().determine_input_size()
+
     def create_sample_generator(self, limit_count: int):
+        if self.from_audio:
+            return self.reader.load_raw_samples(
+                self.flags.dataset,
+                loop_infinitely=False,
+                limit_count=limit_count,
+                sample_rate=self.wire_sr,
+            )
         return self.reader.load_samples(
             self.flags.dataset,
             loop_infinitely=False,
             limit_count=limit_count,
             feature_type=self.flags.feature_type,
             max_size=getattr(self.flags, "max_input_frames", 0) or False,
+        )
+
+    def create_loader(self):
+        if not self.from_audio:
+            return super().create_loader()
+        from speecht_tpu_torch.data.pipeline import (
+            PrefetchLoader,
+            build_audio_batch,
+        )
+        from speecht_tpu_torch.native import DEFAULT_SR
+        from speecht_tpu_torch.ops import resample as resample_mod
+
+        # the sample bucket at the wire rate: a multiple of the polyphase
+        # hop (batch_resample needs S % M == 0) that resamples to at least
+        # the feature-frame bucket
+        sample_bucket = resample_mod.input_bucket(
+            160 * getattr(self.flags, "bucket_step", 256),
+            self.wire_sr,
+            DEFAULT_SR,
+        )
+        return PrefetchLoader(
+            lambda: self.create_sample_generator(self.get_loader_limit_count()),
+            batch_size=self.flags.batch_size,
+            device=self.device,
+            time_bucket=sample_bucket,
+            max_steps=self.get_max_steps(),
+            transfer_dtype=getattr(self.flags, "transfer_dtype", "bfloat16"),
+            batch_builder=build_audio_batch,
         )
 
     def get_loader_limit_count(self) -> int:
@@ -65,8 +143,24 @@ class Evaluation(DatasetExecutor):
         if self.flags.lm.language_model:
             from speecht_tpu_torch.ops.beam import BeamSearchDecoder
 
-            self._beam = BeamSearchDecoder(self.model, self.flags.lm)
+            self._beam = BeamSearchDecoder(
+                self.model,
+                self.flags.lm,
+                feature_type=(
+                    self.flags.feature_type if self.from_audio else None
+                ),
+                wire_sr=self.wire_sr if self.from_audio else None,
+            )
             return self._beam.eval_step
+        if self.from_audio:
+            from speecht_tpu_torch.data import features_device
+
+            return tstep.make_audio_eval_step(
+                self.model,
+                features_device.make_front_end(
+                    self.flags.feature_type, wire_sr=self.wire_sr
+                ),
+            )
         return tstep.make_eval_step(self.model)
 
     def load_weights(self) -> int:
@@ -136,8 +230,13 @@ class Evaluation(DatasetExecutor):
     @staticmethod
     def _track_batch(stats: EvalStatistics, batch, decoded, dec_lengths,
                      verbose: bool = False):
+        # a Batch marks its padding rows with seq_lengths 0, an AudioBatch
+        # with num_samples 0
+        lengths = getattr(batch, "seq_lengths", None)
+        if lengths is None:
+            lengths = batch.num_samples
         for i in range(decoded.shape[0]):
-            if batch.seq_lengths[i] == 0:  # padded row of a partial batch
+            if lengths[i] == 0:  # padded row of a partial batch
                 continue
             expected_str = vocabulary.ids_to_sentence(
                 batch.labels[i, : batch.label_lengths[i]]

@@ -1,10 +1,17 @@
-"""The port's host C++: the n-gram LM and the CTC prefix beam search.
+"""The port's host C++: audio decoding, the cache reader, the n-gram LM
+and the CTC prefix beam search.
 
-Counterpart of the LM and beam half of ``speecht_tpu/native/__init__.py``
-(:func:`lm_is_binary`, :class:`NGramLM`, :func:`ctc_beam_search`). The
-sources in this directory are the port's own copies of the JAX package's
-``lm.h``, ``beam_search.cpp`` and the reader half of ``kenlm_binary.cpp``;
-the same emissions give the same ids.
+Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance,
+continuation beam, ARPA -> binary writer and KenLM table dump:
+:func:`flac_decode`, :func:`resample`, :func:`load_audio`,
+:func:`npz_load_sample`, :func:`lm_is_binary`, :class:`NGramLM` and
+:func:`ctc_beam_search`. The sources in this directory are the port's own
+copies of the JAX package's ``speecht_native.cpp`` (FLAC and resampling),
+``npz_reader.cpp`` (without its inflate branch), ``lm.h``,
+``beam_search.cpp`` and the reader half of ``kenlm_binary.cpp``; built
+with the same arithmetic flags (``-O3``, no ``-march=native``, no
+``-ffast-math``) they decode and resample bit for bit as the JAX
+package's library, and the same emissions give the same ids.
 
 The library is compiled with ``g++`` at first use, never at import, into
 ``_build/libspeecht_host-<digest>.so`` inside the package, where
@@ -33,7 +40,9 @@ import numpy as np
 from speecht_tpu_torch.ops.cuda_build import BUILD_DIR
 
 NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("beam_search.cpp", "kenlm_binary.cpp")
+SOURCES = (
+    "beam_search.cpp", "kenlm_binary.cpp", "npz_reader.cpp", "speecht_native.cpp",
+)
 HEADERS = ("lm.h",)
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden"]
 
@@ -96,6 +105,37 @@ _SIGNATURES = {
         None,
     ),
     "stt_lm_is_binary": ([ctypes.c_char_p], ctypes.c_int),
+    "stt_free": ([_P], None),
+    "stt_flac_decode_file": (
+        [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32),
+        ],
+        ctypes.c_int,
+    ),
+    "stt_resample": (
+        [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.c_double,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.c_int64),
+        ],
+        ctypes.c_int,
+    ),
+    "stt_npz_load_sample": (
+        [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.c_int64),  # feature shape [2]
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.c_int64),
+        ],
+        ctypes.c_int,
+    ),
     "stt_ctc_beam_search": (
         [
             ctypes.POINTER(ctypes.c_float),  # log_probs
@@ -224,3 +264,92 @@ def ctc_beam_search(
         len(out),
     )
     return out[:n]
+
+
+def _take(lib, ptr, shape) -> np.ndarray:
+    """Copy a buffer the library returned into numpy, then free it."""
+    if all(shape):
+        arr = np.ctypeslib.as_array(ptr, shape=shape).copy()
+    else:  # an empty buffer may be a null pointer
+        arr = np.zeros(shape, np.dtype(ptr._type_))
+    lib.stt_free(ptr)
+    return arr
+
+
+def flac_decode(path: str) -> tuple[np.ndarray, int]:
+    """Decode a FLAC file to mono float32 in [-1, 1) at its own rate."""
+    lib = load()
+    out = ctypes.POINTER(ctypes.c_float)()
+    n = ctypes.c_int64()
+    sr = ctypes.c_int32()
+    rc = lib.stt_flac_decode_file(
+        path.encode(), ctypes.byref(out), ctypes.byref(n), ctypes.byref(sr)
+    )
+    if rc != 0:
+        raise ValueError(f"FLAC decode failed for {path} (code {rc})")
+    return _take(lib, out, (n.value,)), int(sr.value)
+
+
+def resample(audio: np.ndarray, sr_in: float, sr_out: float) -> np.ndarray:
+    """Windowed-sinc resample; output length ceil(n * sr_out / sr_in)."""
+    lib = load()
+    audio = np.ascontiguousarray(audio, dtype=np.float32)
+    out = ctypes.POINTER(ctypes.c_float)()
+    n_out = ctypes.c_int64()
+    rc = lib.stt_resample(
+        audio.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(audio),
+        float(sr_in),
+        float(sr_out),
+        ctypes.byref(out),
+        ctypes.byref(n_out),
+    )
+    if rc != 0:
+        raise ValueError(f"resample failed (code {rc})")
+    return _take(lib, out, (n_out.value,))
+
+
+DEFAULT_SR = 22050  # the rate of the feature cache (librosa.load's default)
+
+
+def load_audio(path: str, sr: int | None = DEFAULT_SR) -> tuple[np.ndarray, int]:
+    """Decode FLAC and resample to ``sr`` (None keeps the file's rate)."""
+    audio, native_sr = flac_decode(path)
+    if sr is None or sr == native_sr:
+        return audio, native_sr
+    return resample(audio, native_sr, sr), sr
+
+
+class NpzLayoutError(ValueError):
+    """A well-formed npz of a layout the native reader does not read (a
+    deflated entry, big-endian or Fortran-order data, another dtype):
+    ``np.load`` reads it."""
+
+
+def npz_load_sample(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """One cache file -> (features float32 [T, F], transcript int32).
+
+    Raises :class:`NpzLayoutError` for a file of another layout and
+    ValueError for a file that cannot be read or is damaged. The call
+    releases the GIL.
+    """
+    lib = load()
+    feats = ctypes.POINTER(ctypes.c_float)()
+    shape = (ctypes.c_int64 * 2)()
+    transcript = ctypes.POINTER(ctypes.c_int32)()
+    length = ctypes.c_int64()
+    rc = lib.stt_npz_load_sample(
+        path.encode(),
+        ctypes.byref(feats),
+        shape,
+        ctypes.byref(transcript),
+        ctypes.byref(length),
+    )
+    if rc == 1:
+        raise NpzLayoutError(f"{path}: not the layout the native reader reads")
+    if rc != 0:
+        raise ValueError(f"npz load failed for {path} (code {rc})")
+    return (
+        _take(lib, feats, (shape[0], shape[1])),
+        _take(lib, transcript, (length.value,)),
+    )

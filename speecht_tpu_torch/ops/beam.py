@@ -86,11 +86,16 @@ class BeamSearchDecoder:
 
     ``lm_config`` is a :class:`LanguageModelConfig`. The beam runs on a
     pool of ``num_threads`` threads (default ``min(32, os.cpu_count())``);
-    :meth:`close` shuts it down.
+    :meth:`close` shuts it down. With ``feature_type`` the batches are
+    raw-audio ``AudioBatch``es (``evaluate --from-audio``): the device
+    front end for that feature type (audio at ``wire_sr``) runs ahead of
+    the model.
     """
 
     def __init__(self, model, lm_config: LanguageModelConfig,
-                 num_threads: int | None = None):
+                 num_threads: int | None = None,
+                 feature_type: str | None = None,
+                 wire_sr: int | None = None):
         self.lm_config = lm_config
         self.blank_threshold = lm_config.blank_threshold
         if lm_config.rescore_n and not lm_config.device_beam:
@@ -105,6 +110,13 @@ class BeamSearchDecoder:
             model_path, vocab = find_lm_files(lm_config.language_model)
             self.lm = native.NGramLM(model_path, vocab)
         self._loss_fn = tstep.make_loss_fn(model)
+        self._audio_loss_fn = None
+        if feature_type is not None:
+            from speecht_tpu_torch.data import features_device
+
+            self._audio_loss_fn = tstep.make_audio_loss_fn(
+                model, features_device.make_front_end(feature_type, wire_sr)
+            )
         self.num_threads = num_threads or min(32, os.cpu_count() or 8)
         self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
 
@@ -114,10 +126,17 @@ class BeamSearchDecoder:
     @torch.inference_mode()
     def device_part(self, batch):
         """(average loss, collapsed log-probs [B, T, C], new lengths [B]),
-        on the batch's device."""
-        avg_loss, logits = self._loss_fn(batch)
+        on the batch's device; padding rows have length 0."""
+        if self._audio_loss_fn is None:
+            avg_loss, logits = self._loss_fn(batch)
+            logit_lengths = output_length(batch.seq_lengths)
+        else:
+            avg_loss, logits, logit_lengths = self._audio_loss_fn(batch)
+            logit_lengths = torch.where(
+                batch.num_samples > 0, logit_lengths, 0
+            )
         logp, new_lengths = decode.blank_collapse(
-            logits, output_length(batch.seq_lengths), self.blank_threshold
+            logits, logit_lengths, self.blank_threshold
         )
         return avg_loss, logp, new_lengths
 

@@ -73,6 +73,49 @@ def make_eval_step(model: Wav2Letter) -> Callable:
     return eval_step
 
 
+def make_audio_loss_fn(model: Wav2Letter, front_end: Callable) -> Callable:
+    """AudioBatch -> (average CTC loss, logits, logit_lengths): the
+    ``--from-audio`` twin of :func:`make_loss_fn`, with ``front_end``
+    (``features_device.make_front_end``) ahead of the model.
+
+    A padding row's features are NaN (0/0 in the masked normalisation), so
+    its loss is NaN: the mask is a ``where``, never a multiply (NaN * 0 is
+    NaN).
+    """
+
+    def loss_fn(batch):
+        feats, frame_lengths = front_end(batch.audio, batch.num_samples)
+        logits = model(feats)
+        logit_lengths = output_length(frame_lengths)
+        losses = ctc_cuda.ctc_loss(
+            logits, logit_lengths, batch.labels, batch.label_lengths
+        )
+        real = (batch.num_samples > 0) & (losses < 1e29)
+        avg_loss = torch.where(real, losses, 0.0).sum() / real.sum().clamp(
+            min=1
+        )
+        return avg_loss, logits, logit_lengths
+
+    return loss_fn
+
+
+def make_audio_eval_step(model: Wav2Letter, front_end: Callable) -> Callable:
+    """AudioBatch -> (loss, decoded [B, T//2], decoded_lengths [B]); the
+    decoded lengths of padding rows are 0."""
+    loss_fn = make_audio_loss_fn(model, front_end)
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        avg_loss, logits, logit_lengths = loss_fn(batch)
+        decoded, dec_lengths, _scores = decode.greedy_decode(
+            logits, logit_lengths
+        )
+        dec_lengths = torch.where(batch.num_samples > 0, dec_lengths, 0)
+        return avg_loss, decoded, dec_lengths
+
+    return eval_step
+
+
 def _make_grad_fn(model: Wav2Letter) -> Callable:
     """(params, batch) -> (grads by name, average loss), loss detached."""
     loss_fn = make_loss_fn(model)

@@ -161,7 +161,7 @@ def test_missing_weights_is_fatal(workdir):
     "flags",
     [
         ["--language-model", "lm", "--device-beam"],
-        ["--from-audio"],
+        ["--from-audio", "--data-parallel", "2"],
         ["--seq-parallel", "2"],
         ["--data-parallel", "2"],
         ["--model-parallel", "2"],

@@ -108,6 +108,25 @@ def test_every_module_of_the_beam_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_audio_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.native",
+        "speecht_tpu_torch.data.features",
+        "speecht_tpu_torch.data.features_device",
+        "speecht_tpu_torch.data.pipeline",
+        "speecht_tpu_torch.data.reader",
+        "speecht_tpu_torch.ops.resample",
+        "speecht_tpu_torch.ops.beam",
+        "speecht_tpu_torch.corpus",
+        "speecht_tpu_torch.preprocessing",
+        "speecht_tpu_torch.evaluation",
+        "speecht_tpu_torch.train.step",
+        "speecht_tpu_torch.cli",
+    ):
+        assert m in mods
+
+
 def _native_sources():
     native = os.path.join(PACKAGE, "native")
     return sorted(
@@ -117,12 +136,25 @@ def _native_sources():
     )
 
 
+def test_native_sources_are_the_ones_built():
+    """Every C++ file of ``native/`` is compiled into the library, the
+    audio and cache readers among them."""
+    from speecht_tpu_torch import native
+
+    built = {os.path.join(native.NATIVE_DIR, s) for s in native.SOURCES}
+    cpp = {p for p in _native_sources() if p.endswith(".cpp")}
+    assert built == cpp
+    for name in ("speecht_native.cpp", "npz_reader.cpp"):
+        assert os.path.join(native.NATIVE_DIR, name) in built
+
+
 @pytest.mark.parametrize(
     "path", _native_sources(), ids=lambda p: os.path.relpath(p, ROOT)
 )
 def test_native_source_includes_nothing_outside_its_directory(path):
     """A quoted include names a file of the same directory; an angle
-    include names a standard header (no path)."""
+    include names a standard header (no path): no ``<zlib.h>``, so the
+    library builds with the compiler alone."""
     here = os.listdir(os.path.dirname(path))
     with open(path) as f:
         includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', f.read(), re.M)
