@@ -44,6 +44,20 @@ drives the port's main path through its normal entry point, and fails
    bias + ReLU yardstick and the bound; two bf16 calls bit-equal;
    ``Conv0Function``'s gradients against autograd through
    ``conv0_plain``; the kernels' registers, spills and shared memory.
+2d. The device beam kernel (``csrc/beam_device.cu``) against its plain
+   version (``ops/beam_device.plain_beam_search``) on the card, on
+   collapsed-like log-probs made from a seed: the main shape (B=64,
+   130-230 kept frames a row, width 100, top-k 8, the phase-3d order-3
+   ARPA LM, which this phase writes), no LM, ``n_best=8``, W=1024 on short
+   rows, ragged rows (lengths 0 and 1 among them), an order-1 LM, an
+   order-6 LM (history 5, ``<s>`` pinned) and the phase-3d LM keyed by
+   KenLM's chained hash (``kenlm_keyed_lm``): ids and lengths equal on
+   every row, n-best scores to 1e-6 relative (the count bit-equal
+   reported), two calls bit-equal; at the main shape the kernel's time
+   beside the plain version's, the bound and the yardstick, the port's
+   host C++ beam on ``os.cpu_count()`` threads over the same rows (no
+   single PyTorch call searches a beam); the kernel's shared memory at
+   W=100 and W=1024.
 3. The evaluate path: ``CLI(["evaluate", ...]).run()`` on a synthetic
    cached corpus (256 utterances of 600-1024 frames) with full-width
    random weights (128/250/2000/29, 11 layers) written as a
@@ -76,8 +90,8 @@ drives the port's main path through its normal entry point, and fails
    times of both paths in turns.
 3d. The LM path: ``CLI(["evaluate", "--language-model", LM_DIR, ...]).run()``
    on the phase-3 corpus, B=64, beam width 100 and top-k 8 (JAX's
-   defaults), with a synthetic order-3 ARPA LM written from a seed (4000
-   words, about 10^5 n-grams) and a vocabulary file, and the phase-3
+   defaults), with phase 2d's synthetic order-3 ARPA LM written from a
+   seed (4000 words, about 10^5 n-grams) and a vocabulary file, and the phase-3
    weights with the last layer's blank bias raised, calibrated on one
    batch so that the blank collapse keeps 20-30% of the frames (checked
    within 10-40%; conv_0's filters first take a gain that spreads the
@@ -91,6 +105,19 @@ drives the port's main path through its normal entry point, and fails
    64 utterances with the same LM, from a port checkpoint of the 3d
    weights: five candidates scored and sorted, ``ctc_alpha`` launched once
    for the one dev batch; ms per candidate.
+3g. The device beam through ``CLI([...]).run()``, on the phase-3d corpus,
+   weights and LM: ``evaluate --language-model --device-beam`` (4
+   batches; ms a batch and utt/s beside phase 3d's host-beam period, and
+   the beam kernel's ms on one batch by CUDA events), ``--device-beam
+   --rescore 8`` (4 batches), ``search --device-beam --generations 4
+   --step-count 1`` (ms per candidate beside phase 3e's), ``evaluate
+   --from-audio --language-model --device-beam`` (one batch of the
+   phase-3f corpus, run in phase 3f) and ``--device-lm-hbm-gb 0.000001``
+   (JAX's fall-back message, the host beam); the launch counts reset just
+   before each run and read just after: ``ctc_alpha`` once a batch,
+   ``beam_device`` once a batch (once a candidate in ``search``; never on
+   the fall-back), ``ctc_beta`` and conv0 never. The LM tables are cached
+   in the run's temporary directory.
 3f. The audio front end: a synthetic FLAC corpus written from a seed by
    ``write_flac`` (64 test and 64 dev utterances, 16 kHz 16-bit mono,
    4.4-7.4 s, FIXED order-2 rice-coded subframes, 60-200 letters each,
@@ -127,6 +154,11 @@ drives the port's main path through its normal entry point, and fails
    decodes as phase 4; cache B against cache A, file by file, within
    JAX's device-against-host tolerance (1e-2 + 1e-2 x |value|) plus one
    bfloat16 spacing.
+4f. The card's collapsed log-probs of phase 4d through the beam kernel on
+   the card and the plain version on the CPU (width 100, top-k 8, the
+   phase-3d LM): how many rows decode alike; every row decoded otherwise
+   must be a near tie, its two hypotheses within 0.1 of each other under
+   float64 rescoring (the bound of JAX's ``tests/test_beam_device.py``).
 5. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -739,6 +771,275 @@ def check_conv0_grads(device):
           f"{flips} entries (tolerance rtol {CONV0_GRAD_RTOL} atol "
           f"{CONV0_GRAD_ATOL}): " + ("ok" if ok else "DISAGREES"))
     check(ok, "conv0 gradients disagree")
+
+
+# -- phase 2d: the device beam against its plain version ---------------------
+
+BEAM_WIDTH, BEAM_TOP_K = 100, 8  # JAX's defaults
+BEAM_WEIGHTS = (0.8, 0.0, 2.3)  # JAX's default lm, word-count, valid-word weights
+# kept frames a row at the 1024-frame bucket, as phase 3d's weights keep them
+BEAM_FRAMES = (130, 231)
+# the kernel vs the plain version on the card: the same float32 operations
+# in the same order, so ids and lengths must be equal and the n-best
+# scores equal to 1e-6 relative (how many are bit-equal is reported)
+BEAM_SCORE_RTOL = 1e-6
+# phase 4f: a row the card and the CPU decode otherwise must be a near tie:
+# its two hypotheses within this of each other under float64 rescoring
+# (the bound of JAX's own tests/test_beam_device.py:300)
+BEAM_TIE_MARGIN = 0.1
+# operations a candidate costs: a log-add-exp of its pb and pnb (max,
+# subtract, abs, exp, log1p, add), its extension score, its LM term and the
+# total, with the compares of its masks; 2 of the 12 (exp, log1p) run on
+# the special-function units
+BEAM_OPS_PER_CANDIDATE = 12
+BEAM_SFU_OPS_PER_CANDIDATE = 2
+# the 67e12 counts an FMA as two operations (132 SMs x 128 float32 lanes x
+# 2 x 1.98 GHz): an add, a compare or a max is one a lane and clock, and
+# the special-function units give 16 results a clock an SM against the 128
+# lanes (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0)
+PEAK_F32_NON_FMA_OPS_PER_S = PEAK_F32_OPS_PER_S / 2
+PEAK_SFU_OPS_PER_S = PEAK_F32_NON_FMA_OPS_PER_S * 16 / 128
+BEAM_BYTES_PER_PROBE = 40  # a 32-byte bucket key row and an 8-byte value
+
+
+def beam_emissions(seed, lengths):
+    """Collapsed-like log-probs [B, T, 29] from a numpy seed: each frame
+    has one likely char (a letter, 20% the space, 12% the blank) above
+    spread alternates, so the beam spells words of the LM's alphabet and
+    keeps choices open; zero past each row's length."""
+    from speecht_tpu_torch import vocabulary
+
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths, np.int32)
+    B = len(lengths)
+    T = max(int(lengths.max()), 1)
+    logits = rng.randn(B, T, vocabulary.NUM_CLASSES).astype(np.float32) * 1.5
+    target = rng.randint(0, 26, size=(B, T))
+    u = rng.rand(B, T)
+    target[u < 0.2] = vocabulary.SPACE_ID
+    target[u > 0.88] = vocabulary.BLANK_ID
+    np.put_along_axis(logits, target[..., None],
+                      np.take_along_axis(logits, target[..., None], -1) + 7.0, -1)
+    logp = torch.log_softmax(torch.from_numpy(logits), dim=-1).numpy()
+    logp[np.arange(T)[None, :] >= lengths[:, None]] = 0.0
+    return logp, lengths
+
+
+def write_arpa(path, grams):
+    """An ARPA file from {n: [(log10 prob, words, backoff or None)]}."""
+    lines = ["\\data\\"] + [f"ngram {n}={len(grams[n])}" for n in sorted(grams)]
+    for n in sorted(grams):
+        lines += ["", f"\\{n}-grams:"]
+        lines += [f"{p:.4f}\t{' '.join(w)}" + ("" if b is None else f"\t{b:.4f}")
+                  for p, w, b in grams[n]]
+    lines += ["", "\\end\\", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def lm_variants(root, lm_dir, seed=5):
+    """Two LMs over the phase-3d LM's words, each in a directory with its
+    vocabulary file: order 1 (no history), and order 6 (history 5, <s>
+    pinned) with 6-word chains, half of them <s>-anchored."""
+    from speecht_tpu_torch.ops import beam_device
+
+    _order, word_ids, _entries = beam_device._parse_arpa(os.path.join(lm_dir, "model.arpa"))
+    words = [w for w in word_ids if not w.startswith("<")]
+    rng = np.random.RandomState(seed)
+    uni = [(-3.5, ("<unk>",), None), (-2.0, ("<s>",), -0.4), (-2.1, ("</s>",), None)]
+    uni += [(-1.5 - 3 * rng.rand(), (w,), -0.1 - 0.4 * rng.rand()) for w in words]
+    dirs = []
+    for name, order in (("lm_order1", 1), ("lm_order6", 6)):
+        grams = {1: uni}
+        if order == 6:
+            chains = [[words[i] for i in rng.randint(0, len(words), size=6)]
+                      for _ in range(4000)]
+            for c in chains[::2]:
+                c[0] = "<s>"
+            for n in range(2, 7):
+                seen = {tuple(c[i:i + n]) for c in chains for i in range(7 - n)}
+                grams[n] = [(-0.3 - 2 * rng.rand(), g, None if n == 6 else -0.2)
+                            for g in sorted(seen)]
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        write_arpa(os.path.join(d, "model.arpa"), grams)
+        with open(os.path.join(d, "vocabulary"), "w") as f:
+            f.write("\n".join(words[::2]) + "\n")
+        dirs.append(d)
+    return dirs
+
+
+def kenlm_keyed_lm(lm_dir, device):
+    """The LM of ``lm_dir`` with its n-gram windows keyed by KenLM's
+    chained hash (``key_scheme`` "kenlm", the tables a PROBING binary
+    gives; there is no KenLM writer here)."""
+    from speecht_tpu_torch.ops import beam_device
+
+    arpa = os.path.join(lm_dir, "model.arpa")
+    vocab = os.path.join(lm_dir, "vocabulary")
+    order, _word_ids, entries = beam_device._parse_arpa(arpa)
+    meta, tables = beam_device._build_np_from_arpa(arpa, vocab)
+    keys = [beam_device._np_kenlm_key_hash_rows(entries[n - 1][0])
+            for n in range(2, order + 1)]
+    ak, av, a2c = beam_device._assemble_arena(
+        [k[0] for k in keys], [k[1] for k in keys],
+        [entries[n - 1][1] for n in range(2, order + 1)],
+        [entries[n - 1][2] for n in range(2, order + 1)],
+    )
+    meta = dict(meta, key_scheme="kenlm", arena_two_choice=a2c)
+    tables = dict(tables, arena_k=ak, arena_v=av)
+    return beam_device.DeviceLM._from_np(meta, tables, None, device)
+
+
+def beam_bound_ms(lengths, W, K, H, n_best, T, table_bytes):
+    """Least time for this data: the emissions read once, the [B, T, W]
+    int16 backpointers and the outputs written once, the LM rows probed
+    (a word-table row and the 2H+1 arena rows of a backoff walk for every
+    beam and frame) capped at the tables' size. Operations per frame and
+    row, by type: the (K+1)·W candidates' arithmetic (exp and log1p at
+    the special-function units' rate, the rest at the non-FMA float32
+    rate); the top-W selection of the pool, P + W·log2(W) compares; one
+    match a beam for the merge, two 32-bit key compares. The two kinds of
+    unit run side by side, so the operations take the longer of their two
+    times. Returns (ms, bound_by, the counts)."""
+    frames = int(np.asarray(lengths, np.int64).sum())
+    B = len(lengths)
+    P = (K + 1) * W
+    probes = frames * W * (2 + 2 * H) if table_bytes else 0
+    nbytes = (frames * 29 * 4 + 4 * B + frames * W * 2 + B * n_best * (4 * T + 8)
+              + min(probes * BEAM_BYTES_PER_PROBE, table_bytes))
+    sfu = frames * P * BEAM_SFU_OPS_PER_CANDIDATE
+    alu = frames * (P * (BEAM_OPS_PER_CANDIDATE - BEAM_SFU_OPS_PER_CANDIDATE)
+                    + P + W * math.ceil(math.log2(W)) + 2 * W)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(alu / PEAK_F32_NON_FMA_OPS_PER_S, sfu / PEAK_SFU_OPS_PER_S)
+    counts = {"bytes": nbytes, "float32_ops": alu, "sfu_ops": sfu}
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            counts)
+
+
+def host_beam_ms(logp, lengths, lm_dir, W, weights):
+    """The port's host C++ beam over the same rows on os.cpu_count()
+    threads (the yardstick: no single PyTorch call searches a beam);
+    host clock, one call after a warm-up row."""
+    import concurrent.futures
+
+    from speecht_tpu_torch import native, vocabulary
+    from speecht_tpu_torch.ops.beam import find_lm_files
+
+    lm = native.NGramLM(*find_lm_files(lm_dir)) if lm_dir else None
+
+    def one(i):
+        return native.ctc_beam_search(
+            logp[i, :lengths[i]], beam_width=W, lm=lm, lm_weight=weights[0],
+            word_count_weight=weights[1], valid_word_count_weight=weights[2],
+            blank_id=vocabulary.BLANK_ID)
+
+    one(0)
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        t0 = time.perf_counter()
+        out = list(pool.map(one, range(len(lengths))))
+        ms = (time.perf_counter() - t0) * 1e3
+    return ms, out
+
+
+def check_beam(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
+               n_best=1, weights=BEAM_WEIGHTS, lm_dir=None, time_it=False):
+    """The beam kernel against its plain version on the card: ids and
+    lengths equal on every row, the n-best scores to BEAM_SCORE_RTOL
+    (the count bit-equal reported), two kernel calls bit-equal; with
+    ``time_it`` the kernel's time beside the plain version's, the bound
+    and the host beam's."""
+    from speecht_tpu_torch.ops import beam_device
+
+    fn = beam_device.make_device_beam_search(W, lm=lm, prune_top_k=top_k, n_best=n_best)
+    x = torch.from_numpy(logp).to(device)
+    n = torch.from_numpy(lengths).to(device)
+    got = [t.cpu() for t in fn(x, n, *weights)]
+    again = [t.cpu() for t in fn(x, n, *weights)]
+    want = [t.cpu() for t in fn.plain(x, n, *weights)]
+    same_ids = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    rows_equal = int((got[0] == want[0]).reshape(len(lengths), -1).all(1).sum())
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    max_abs = 0.0
+    score_note = ""
+    ok = same_ids and bit_equal
+    if n_best > 1:
+        gs, ws = got[2], want[2]
+        live = ws > -1e29
+        max_abs = float((gs - ws)[live].abs().max()) if live.any() else 0.0
+        rel = float(((gs - ws).abs() / ws.abs().clamp(min=1e-30))[live].max()) if live.any() else 0.0
+        same_bits = int((gs.view(torch.int32) == ws.view(torch.int32)).sum())
+        ok = ok and rel <= BEAM_SCORE_RTOL
+        score_note = (f"; n-best scores max rel diff {rel!r} (tolerance {BEAM_SCORE_RTOL}), "
+                      f"{same_bits}/{gs.numel()} bit-equal")
+    K = fn.spec.top_k(logp.shape[2])
+    H = fn.spec.H
+    shape = (f"B={len(lengths)} T={logp.shape[1]} frames {int(lengths.min())}-"
+             f"{int(lengths.max())} W={W} K={K} n_best={n_best} "
+             + ("no LM" if lm is None else f"LM order {lm.order} ({lm.key_scheme} keys)"))
+    print(f"beam_device {name} [{shape}]: rows with equal ids {rows_equal}/{len(lengths)}, "
+          f"lengths equal {bool(torch.equal(got[1], want[1]))}{score_note}; two calls "
+          f"bit-equal {bit_equal}: " + ("ok" if ok else "DISAGREES"))
+    check(ok, f"beam_device {name} disagrees with the plain version")
+    result = {"shape": shape, "max_abs_err": max_abs, "ok": ok}
+    if not time_it:
+        return result
+    ms = time_ms(lambda: fn(x, n, *weights), iters=5)
+    plain_ms = time_ms(lambda: fn.plain(x, n, *weights), iters=1, warmup=0)
+    host_ms, _ = host_beam_ms(logp, lengths, lm_dir, W, weights)
+    table_bytes = lm.hbm_bytes() if lm is not None else 0
+    bound_ms, bound_by, counts = beam_bound_ms(lengths, W, K, H, n_best, logp.shape[1],
+                                               table_bytes)
+    print(f"beam_device {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, host C++ beam "
+          f"({os.cpu_count()} threads) {host_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: "
+          f"{counts['float32_ops']} float32 operations and compares, {counts['sfu_ops']} "
+          f"exp/log1p, {counts['bytes']} bytes); LM tables {table_bytes} bytes")
+    result.update(ms=ms, plain_ms=plain_ms, host_beam_ms=host_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None)
+    return result
+
+
+def beam_phase(work, device):
+    """Phase 2d: the beam kernel against its plain version on the card, at
+    the main shape (B=64, 130-230 kept frames, W=100, K=8, the phase-3d
+    LM) and on the edges. Returns (the main case's result, the LM's
+    directory, its n-gram count)."""
+    from speecht_tpu_torch.ops import beam_device, beam_device_cuda
+
+    lm_dir, n_grams = write_lm(work)
+    order1_dir, order6_dir = lm_variants(work, lm_dir)
+
+    def load(d):
+        return beam_device.DeviceLM(os.path.join(d, "model.arpa"),
+                                    os.path.join(d, "vocabulary"), device=device)
+
+    lm = load(lm_dir)
+    rng = np.random.RandomState(7)
+    logp, lengths = beam_emissions(0, rng.randint(*BEAM_FRAMES, size=MAIN_BATCH))
+    main = check_beam("main shape", lm, logp, lengths, device, lm_dir=lm_dir,
+                      time_it=True)
+    # timed too: the main shape's time less this one is what the LM costs
+    check_beam("no LM", None, logp, lengths, device, time_it=True)
+    check_beam("n_best=8", lm, logp, lengths, device, n_best=8)
+    short, short_len = beam_emissions(1, rng.randint(10, 31, size=8))
+    check_beam("W=1024 short rows", lm, short, short_len, device, W=1024)
+    ragged, ragged_len = beam_emissions(2, [0, 1, 2, 5, 50, 130, 200, 230])
+    check_beam("ragged lengths", lm, ragged, ragged_len, device, n_best=4)
+    check_beam("order-1 LM", load(order1_dir), logp[:16], lengths[:16], device)
+    lm6 = load(order6_dir)
+    check(lm6.hist_len == 5 and lm6.bos_id >= 0, "the order-6 LM has no pinned <s>")
+    check_beam("order-6 LM (H=5, <s> pinned)", lm6, logp[:16], lengths[:16], device)
+    check_beam("kenlm key scheme", kenlm_keyed_lm(lm_dir, device), logp[:16],
+               lengths[:16], device)
+    lib = beam_device_cuda.BEAM_DEVICE.lib
+    print("beam_device dynamic shared memory a CTA (registers and spills: the ptxas "
+          "lines of phase 1, one build for every width): " + ", ".join(
+              f"W={w} K={k} H={h}: {lib.beam_device_smem_bytes(w, k, h)} bytes, "
+              f"{lib.beam_device_threads(w, k)} threads"
+              for w, k, h in ((100, 8, 2), (1024, 8, 2), (1024, 8, 5), (128, 29, 5))))
+    return main, lm_dir, n_grams
 
 
 # -- phase 3: the main path -----------------------------------------------
@@ -1606,10 +1907,15 @@ def candidate_durations():
         LanguageModelParameterSearch._score_candidate = score
 
 
-def lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card):
+def lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card, *extra,
+                 steps=LM_STEPS, beam_launches=0):
     """``evaluate --language-model`` at full width, B=64, beam width 100,
-    top-k 8; the launch counts set to 0 just before and read just after."""
-    n = MAIN_BATCH * LM_STEPS
+    top-k 8, with the flags ``extra`` (``--device-beam`` ...); the launch
+    counts set to 0 just before and read just after: ``ctc_alpha`` once a
+    batch, ``beam_device`` ``beam_launches`` times, the others never.
+    Returns (launches, steady-state ms a batch, the run's output)."""
+    n = MAIN_BATCH * steps
+    label = " ".join(["evaluate --language-model", *extra])
     argv = [
         "evaluate", "--test", "--no-save",
         "--data-dir", data_dir,
@@ -1618,7 +1924,8 @@ def lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card):
         "--reference-weights", lm_weights,
         "--batch-size", str(MAIN_BATCH),
         "--language-model", lm_dir,
-        "--step-count", str(LM_STEPS),
+        "--step-count", str(steps),
+        *extra,
     ]
     with batch_marks() as marks:
         for k in kernels:
@@ -1633,29 +1940,30 @@ def lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card):
     lines = out.splitlines()
     losses = [float(ln.split()[3]) for ln in lines if ln.startswith("validation average loss")]
     n_expected = sum(ln.startswith("expected: ") for ln in lines)
-    print("LM path: " + " | ".join(lines[lines.index("Begin evaluation") + 1:][:3]))
-    print("LM path: " + " | ".join(lines[lines.index("Global statistics"):]))
-    print(f"LM path: losses {losses}; kernel launches {launches}")
+    print(f"{label}: " + " | ".join(lines[lines.index("Begin evaluation") + 1:][:3]))
+    print(f"{label}: " + " | ".join(lines[lines.index("Global statistics"):]))
+    print(f"{label}: losses {losses}; kernel launches {launches}")
     check(stats.decodings_counter == n and n_expected == n,
-          f"evaluate --language-model tracked {stats.decodings_counter} of {n} utterances")
-    check(len(losses) == LM_STEPS and all(math.isfinite(x) and 0 < x < 1e29 for x in losses),
-          f"evaluate --language-model losses not well formed: {losses}")
-    check(0 <= stats.global_letter_error_rate < 100, "LM path: LER not well formed")
-    check("precise: LER" in out, "LM path: no precise statistics line")
-    check(launches["ctc_alpha"] == LM_STEPS,
-          f"evaluate --language-model launched ctc_alpha {launches['ctc_alpha']} "
-          f"times for {LM_STEPS} batches")
-    check(launches["ctc_beta"] == 0, "evaluate --language-model launched the backward kernel")
-    check(launches["conv0"] == 0, "evaluate --language-model launched conv0")
-    steady_ms = batch_period_ms(marks)
+          f"{label} tracked {stats.decodings_counter} of {n} utterances")
+    check(len(losses) == steps and all(math.isfinite(x) and 0 < x < 1e29 for x in losses),
+          f"{label} losses not well formed: {losses}")
+    check(0 <= stats.global_letter_error_rate < 100, f"{label}: LER not well formed")
+    check("precise: LER" in out, f"{label}: no precise statistics line")
+    check(launches["ctc_alpha"] == steps,
+          f"{label} launched ctc_alpha {launches['ctc_alpha']} times for {steps} batches")
+    check(launches["beam_device"] == beam_launches,
+          f"{label} launched beam_device {launches['beam_device']} times, not "
+          f"{beam_launches}, for {steps} batches")
+    check(launches["ctc_beta"] == 0, f"{label} launched the backward kernel")
+    check(launches["conv0"] == 0, f"{label} launched conv0")
+    steady_ms = batch_period_ms(marks) if steps > 2 else float("nan")
     print(
-        f"LM path: evaluate --language-model B={MAIN_BATCH} x {LM_STEPS} batches "
-        f"(T=1024 frame bucket, beam width 100, top-k 8), whole run with set-up "
-        f"(LM load included): {wall / LM_STEPS * 1e3!r} ms/batch, {n / wall!r} utt/s; "
-        f"steady state: {steady_ms!r} ms/batch, {MAIN_BATCH / steady_ms * 1e3!r} "
-        f"utt/s; on {card}"
+        f"{label}: B={MAIN_BATCH} x {steps} batches (T=1024 frame bucket, beam width "
+        f"100, top-k 8), whole run with set-up (LM load included): "
+        f"{wall / steps * 1e3!r} ms/batch, {n / wall!r} utt/s; steady state: "
+        f"{steady_ms!r} ms/batch, {MAIN_BATCH / steady_ms * 1e3!r} utt/s; on {card}"
     )
-    return launches, steady_ms
+    return launches, steady_ms, out
 
 
 def lm_breakdown(data_dir, lm_weights, lm_dir, n_grams, steady_ms, card,
@@ -1700,14 +2008,19 @@ def lm_breakdown(data_dir, lm_weights, lm_dir, n_grams, steady_ms, card,
     )
 
 
-def search_path(work, data_dir, lm_weights, lm_dir, kernels, card):
+def search_path(work, data_dir, lm_weights, lm_dir, kernels, card, *extra):
     """``search --generations 4 --step-count 1`` on a synthetic dev split
-    (one batch of 64), from a port checkpoint of the LM weights."""
+    (one batch of 64, written at the first call), from a port checkpoint
+    of the LM weights, with the flags ``extra``. Returns (launches, ms per
+    candidate)."""
     from speecht_tpu_torch.data.features import feature_size
 
-    write_corpus(work, MAIN_BATCH, feature_size("power"), seed=2, split="dev")
     run_dir = os.path.join(work, "train", "lmsearch")
-    write_port_checkpoint(run_dir, lm_weights)
+    if not os.path.exists(run_dir):
+        write_corpus(work, MAIN_BATCH, feature_size("power"), seed=2, split="dev")
+        write_port_checkpoint(run_dir, lm_weights)
+    label = " ".join(["search", *extra])
+    beam_launches = (SEARCH_GENERATIONS + 1) if "--device-beam" in extra else 0
     argv = [
         "search",
         "--data-dir", data_dir,
@@ -1718,6 +2031,7 @@ def search_path(work, data_dir, lm_weights, lm_dir, kernels, card):
         "--language-model", lm_dir,
         "--generations", str(SEARCH_GENERATIONS),
         "--step-count", "1",
+        *extra,
     ]
     with candidate_durations() as durations:
         for k in kernels:
@@ -1731,25 +2045,88 @@ def search_path(work, data_dir, lm_weights, lm_dir, kernels, card):
 
     lines = [ln for ln in out.splitlines() if ln.startswith("candidate-precise:")]
     for ln in lines:
-        print(f"search: {ln}")
+        print(f"{label}: {ln}")
     scores = [c.score for c in candidates]
     check(len(lines) == SEARCH_GENERATIONS + 1 and len(durations) == len(lines),
-          f"search scored {len(lines)} candidates")
+          f"{label} scored {len(lines)} candidates")
     check(len(candidates) == SEARCH_GENERATIONS + 1 and scores == sorted(scores)
           and all(math.isfinite(s) for s in scores),
-          f"search candidates not scored and sorted: {scores}")
+          f"{label} candidates not scored and sorted: {scores}")
     check(all(c.stats.decodings_counter == MAIN_BATCH for c in candidates),
-          "search did not decode the dev batch for every candidate")
+          f"{label} did not decode the dev batch for every candidate")
     check(launches["ctc_alpha"] == 1,
-          f"search launched ctc_alpha {launches['ctc_alpha']} times for 1 dev batch")
+          f"{label} launched ctc_alpha {launches['ctc_alpha']} times for 1 dev batch")
+    check(launches["beam_device"] == beam_launches,
+          f"{label} launched beam_device {launches['beam_device']} times for "
+          f"{SEARCH_GENERATIONS + 1} candidates")
     check(launches["ctc_beta"] == 0 and launches["conv0"] == 0,
-          f"search launched other kernels: {launches}")
-    print(f"search: kernel launches {launches}; B={MAIN_BATCH}, "
-          f"{len(durations)} candidates: {float(np.mean(durations)) * 1e3!r} ms per "
-          f"candidate (host beam over the cached emissions; each "
-          f"{[d * 1e3 for d in durations]!r}); whole run with set-up "
+          f"{label} launched other kernels: {launches}")
+    per_candidate = float(np.mean(durations)) * 1e3
+    where = ("the beam kernel over the emissions left on the card" if beam_launches
+             else "host beam over the cached emissions")
+    print(f"{label}: kernel launches {launches}; B={MAIN_BATCH}, "
+          f"{len(durations)} candidates: {per_candidate!r} ms per candidate ({where}; "
+          f"each {[d * 1e3 for d in durations]!r}); whole run with set-up "
           f"{wall!r} s; on {card}")
-    return launches
+    return launches, per_candidate
+
+
+# -- phase 3g: the device beam through the entry points ------------------------
+
+
+def device_beam_paths(work, data_dir, lm_weights, lm_dir, kernels, card, host_lm_ms,
+                      host_search_ms, device=torch.device("cuda")):
+    """``evaluate --language-model --device-beam`` (4 batches), with
+    ``--rescore 8``, ``search --device-beam`` and ``--device-lm-hbm-gb``
+    too small for the LM (the host beam, with JAX's message); each run's
+    launch counts reset just before and read just after. Returns ({path:
+    its launch counts}, ms a batch, the kernel's ms in one batch)."""
+    from speecht_tpu_torch.data.pipeline import to_device
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+
+    runs = {}
+    runs["evaluate --language-model --device-beam"], fused_ms, _out = lm_eval_path(
+        work, data_dir, lm_weights, lm_dir, kernels, card, "--device-beam",
+        beam_launches=LM_STEPS)
+    runs["evaluate --language-model --device-beam --rescore 8"], rescore_ms, _out = (
+        lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card, "--device-beam",
+                     "--rescore", "8", beam_launches=LM_STEPS))
+    runs["search --device-beam"], search_ms = search_path(
+        work, data_dir, lm_weights, lm_dir, kernels, card, "--device-beam")
+    fallback, _ms, out = lm_eval_path(
+        work, data_dir, lm_weights, lm_dir, kernels, card, "--device-beam",
+        "--device-lm-hbm-gb", "0.000001", steps=1, beam_launches=0)
+    check("falling back to the host beam" in out,
+          "--device-lm-hbm-gb 0.000001 did not print the fall-back message")
+    print("device beam: --device-lm-hbm-gb 0.000001: " + next(
+        ln for ln in out.splitlines() if "falling back" in ln))
+    runs["evaluate --device-beam --device-lm-hbm-gb 0.000001 (the host beam)"] = fallback
+
+    # the kernel alone on one batch of the calibrated emissions
+    decoder = BeamSearchDecoder(
+        lm_model(lm_weights, device),
+        LanguageModelConfig(language_model=lm_dir, device_beam=True),
+    )
+    try:
+        batch = one_batch(data_dir)
+        _loss, logp, lengths = decoder.device_part(to_device(batch, device))
+        host_lengths = lengths.cpu().numpy()
+        t_bucket = min(logp.shape[1], max(32, -(-int(host_lengths.max()) // 32) * 32))
+        emissions = logp[:, :t_bucket].contiguous()
+        cfg = decoder.lm_config
+        kernel_ms = time_ms(lambda: decoder._beam_fn(
+            emissions, lengths, cfg.lm_weight, cfg.word_count_weight,
+            cfg.valid_word_count_weight), iters=10)
+    finally:
+        decoder.close()
+    print(f"device beam: evaluate --language-model --device-beam {fused_ms!r} ms/batch "
+          f"({MAIN_BATCH / fused_ms * 1e3!r} utt/s) against the host beam's "
+          f"{host_lm_ms!r} (phase 3d, this run); --rescore 8 {rescore_ms!r} ms/batch; "
+          f"search --device-beam {search_ms!r} ms per candidate against "
+          f"{host_search_ms!r} (phase 3e); the beam kernel on one batch "
+          f"(B={MAIN_BATCH}, {int(host_lengths.min())}-{int(host_lengths.max())} kept "
+          f"frames, T={t_bucket}) {kernel_ms!r} ms by CUDA events; on {card}")
+    return runs, fused_ms, kernel_ms
 
 
 # -- phase 3f: the audio front end ------------------------------------------
@@ -2058,6 +2435,10 @@ def audio_path(work, weights, lm_weights, lm_dir, kernels, card):
               f"for {steps} batches")
         check(launches["ctc_beta"] == 0 and launches["conv0"] == 0,
               f"evaluate {label} launched other kernels: {launches}")
+        beam_launches = steps if "--device-beam" in extra else 0
+        check(launches["beam_device"] == beam_launches,
+              f"evaluate {label} launched beam_device {launches['beam_device']} times "
+              f"for {steps} batches")
         print(f"audio path: evaluate {label} B={MAIN_BATCH} x {steps} batch: losses {losses}; "
               f"kernel launches {launches}; whole run with set-up {wall * 1e3 / steps!r} "
               f"ms/batch, {AUDIO_UTTERANCES / wall!r} utt/s; on {card}")
@@ -2073,6 +2454,10 @@ def audio_path(work, weights, lm_weights, lm_dir, kernels, card):
     lm, _out = evaluate("--from-audio --language-model", host_dir, "dev", lm_weights,
                         "--from-audio", "--language-model", lm_dir,
                         steps=AUDIO_LM_STEPS)
+    # phase 3g's from-audio run: the same batch through the device beam
+    beam, _out = evaluate("--from-audio --language-model --device-beam", host_dir, "dev",
+                          lm_weights, "--from-audio", "--language-model", lm_dir,
+                          "--device-beam", steps=AUDIO_LM_STEPS)
     with npz_reads() as reads:
         cached, _out = evaluate("on the --device cache", device_dir, "test", weights)
     # the input-size probe reads one file before the batch reads them all
@@ -2082,7 +2467,7 @@ def audio_path(work, weights, lm_weights, lm_dir, kernels, card):
           "(and the input-size probe's one) through the native npz reader")
     audio_breakdown(host_dir, weights, card)
     print(f"audio path: phase 3f wall time {time.perf_counter() - t_phase:.1f} s")
-    return greedy, lm, cached, host_dir, device_dir
+    return greedy, lm, beam, cached, host_dir, device_dir
 
 
 def audio_samples(data_dir, split="test", n=MAIN_BATCH):
@@ -2294,6 +2679,91 @@ def parity_beam(data_dir, lm_weights, lm_dir, devices=("cuda", "cpu")):
           "(reported, not checked: a near tie in the beam may flip on a 1e-6 "
           "difference)")
     check(logp_ratio <= 1.0, "beam parity: kept log-probs disagree")
+    parity_device_beam(pg, ng, lm_dir, devices)
+
+
+def ctc_logp_f64(logp, labels):
+    """Exact ln P(labels | emissions) in float64 (the CTC forward)."""
+    from speecht_tpu_torch import vocabulary
+
+    blank = vocabulary.BLANK_ID
+    ext = [blank]
+    for lab in labels:
+        ext += [lab, blank]
+    S = len(ext)
+
+    def ladd(x, y):
+        if x == -math.inf:
+            return y
+        if y == -math.inf:
+            return x
+        m = max(x, y)
+        return m + math.log1p(math.exp(min(x, y) - m))
+
+    a = [-math.inf] * S
+    a[0] = logp[0, ext[0]]
+    if S > 1:
+        a[1] = logp[0, ext[1]]
+    for t in range(1, len(logp)):
+        na = [-math.inf] * S
+        for s in range(S):
+            v = a[s]
+            if s >= 1:
+                v = ladd(v, a[s - 1])
+            if s >= 2 and ext[s] != blank and ext[s] != ext[s - 2]:
+                v = ladd(v, a[s - 2])
+            na[s] = v + logp[t, ext[s]]
+        a = na
+    return ladd(a[S - 1], a[S - 2] if S > 1 else -math.inf)
+
+
+def lm_bonus_f64(host_lm, labels, lm_weight, wc_weight, vwc_weight):
+    """The fusion bonus of a whole hypothesis in float64: per word
+    lm_weight ln 10 log10 P(w | the last 4 words) + the two counts."""
+    from speecht_tpu_torch import vocabulary
+
+    total, hist = 0.0, ""
+    for w in (w for w in vocabulary.ids_to_sentence(labels).split(" ") if w):
+        total += wc_weight + (vwc_weight if host_lm.has_word(w) else 0.0)
+        total += lm_weight * math.log(10) * host_lm.score_word(hist, w)
+        hist = " ".join((hist + " " + w).split()[-4:])
+    return total
+
+
+def parity_device_beam(logp, lengths, lm_dir, devices=("cuda", "cpu"),
+                       weights=BEAM_WEIGHTS):
+    """Phase 4f: the card's collapsed log-probs of phase 4d through the beam
+    kernel on the card and the plain version on the CPU (width 100, top-k
+    8, the phase-3d LM); every row decoded otherwise must be a near tie:
+    its two hypotheses within BEAM_TIE_MARGIN under float64 rescoring."""
+    from speecht_tpu_torch import native
+    from speecht_tpu_torch.ops import beam_device
+
+    arpa, vocab = os.path.join(lm_dir, "model.arpa"), os.path.join(lm_dir, "vocabulary")
+    rows = []
+    for name in devices:
+        device = torch.device(name)
+        fn = beam_device.make_device_beam_search(
+            BEAM_WIDTH, lm=beam_device.DeviceLM(arpa, vocab, device=device))
+        ids, lens = (t.cpu() for t in fn(torch.from_numpy(logp).to(device),
+                                         torch.from_numpy(lengths).to(device), *weights))
+        rows.append([ids[i, :lens[i]].tolist() for i in range(len(lengths))])
+    host_lm = native.NGramLM(arpa, vocab)
+    same, margins = 0, []
+    for i, (g, c) in enumerate(zip(*rows)):
+        if g == c:
+            same += 1
+            continue
+        row = logp[i, :lengths[i]].astype(np.float64)
+        sg = ctc_logp_f64(row, g) + lm_bonus_f64(host_lm, g, *weights)
+        sc = ctc_logp_f64(row, c) + lm_bonus_f64(host_lm, c, *weights)
+        margins.append(abs(sg - sc))
+    print(f"parity device beam: B={len(lengths)}, {int(lengths.min())}-{int(lengths.max())} "
+          f"kept frames, W={BEAM_WIDTH}, K={BEAM_TOP_K}: the kernel on the card and the "
+          f"plain version on the CPU decode {same}/{len(lengths)} rows alike; the others' "
+          f"float64 score margins {margins!r} (each below {BEAM_TIE_MARGIN})")
+    check(all(m < BEAM_TIE_MARGIN for m in margins),
+          "parity device beam: a row the card and the CPU decode otherwise is no near tie")
 
 
 # phase 4e: the front end, card vs CPU, each float32. On this synthetic
@@ -2433,9 +2903,10 @@ def main() -> int:
     import concurrent.futures
 
     from speecht_tpu_torch import native
-    from speecht_tpu_torch.ops import conv0, conv0_cuda, ctc_cuda, cuda_build
+    from speecht_tpu_torch.ops import beam_device_cuda, conv0, conv0_cuda, ctc_cuda, cuda_build
 
-    kernels = list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
+    kernels = (list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
+               + list(beam_device_cuda.KERNELS))
     device = torch.device("cuda")
     # the default phases run without the opt-in conv0 path; phases 3c and
     # 4c set it for themselves
@@ -2521,12 +2992,17 @@ def main() -> int:
             check_conv0(name, B, T, I, O, dtype, device, time_it=False)
     check_conv0_bit_equal(device)
     check_conv0_grads(device)
-    print("kernel launches in the comparisons: "
-          + str({k.name: k.launches for k in kernels}))
 
-    # 3. evaluate; 3b. train; 3c. the conv0 path; 3d, 3e. the LM paths; 3f.
-    # the audio front end; 4-4e. card vs CPU
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        # the device beam's LM tables are cached here, not in $HOME
+        os.environ["SPEECHT_DEVICE_LM_CACHE"] = os.path.join(work, "device_lm")
+        # 2d. the beam kernel against its plain version
+        beam_main, lm_dir, n_grams = beam_phase(work, device)
+        print("kernel launches in the comparisons: "
+              + str({k.name: k.launches for k in kernels}))
+
+        # 3. evaluate; 3b. train; 3c. the conv0 path; 3d, 3e. the LM paths;
+        # 3f. the audio front end; 3g. the device beam; 4-4f. card vs CPU
         eval_launches, data_dir, weights, steady_ms = main_path(work, kernels, card)
         breakdown(data_dir, weights, steady_ms, card)
         train_launches, train_ms = train_path(work, data_dir, weights, kernels, card)
@@ -2535,16 +3011,20 @@ def main() -> int:
             work, data_dir, weights, kernels, card, steady_ms, train_ms
         )
         conv0_device_steps(data_dir, weights, card)
-        lm_dir, n_grams = write_lm(work)
         lm_weights, _kept = lm_weights_for(work, data_dir, weights)
-        lm_launches, lm_ms = lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels, card)
+        lm_launches, lm_ms, _out = lm_eval_path(work, data_dir, lm_weights, lm_dir,
+                                                kernels, card)
         lm_breakdown(data_dir, lm_weights, lm_dir, n_grams, lm_ms, card)
-        search_launches = search_path(work, data_dir, lm_weights, lm_dir, kernels, card)
+        search_launches, search_ms = search_path(work, data_dir, lm_weights, lm_dir,
+                                                 kernels, card)
+        beam_runs, beam_lm_ms, beam_kernel_ms = device_beam_paths(
+            work, data_dir, lm_weights, lm_dir, kernels, card, lm_ms, search_ms)
         parity(data_dir, weights)
         parity_train(data_dir, weights)
         parity(data_dir, weights, conv0_path=True)
-        audio_greedy, audio_lm, audio_cached, host_dir, device_dir = audio_path(
-            work, weights, lm_weights, lm_dir, kernels, card)
+        (audio_greedy, audio_lm, audio_beam, audio_cached, host_dir,
+         device_dir) = audio_path(work, weights, lm_weights, lm_dir, kernels, card)
+        beam_runs["evaluate --from-audio --language-model --device-beam"] = audio_beam
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
 
@@ -2591,8 +3071,23 @@ def main() -> int:
         "evaluate --from-audio": audio_greedy["conv0"],
         "evaluate --from-audio --language-model": audio_lm["conv0"],
     }
+    alpha_entry["launches_by_path"].update(
+        {path: n["ctc_alpha"] for path, n in beam_runs.items()})
+    beam_entry = kernel_entry(
+        "beam_device", "speecht_tpu_torch/csrc/beam_device.cu",
+        "speecht_tpu/ops/beam_device.py:1228 (XLA lax.scan, no Pallas kernel)",
+        beam_runs["evaluate --language-model --device-beam"]["beam_device"], beam_main,
+    )
+    beam_entry["launches_by_path"] = {
+        "evaluate --language-model": lm_launches["beam_device"],
+        **{path: n["beam_device"] for path, n in beam_runs.items()},
+    }
+    beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
+    beam_entry["ms_in_evaluate_batch"] = beam_kernel_ms
+    beam_entry["evaluate_device_beam_ms_per_batch"] = beam_lm_ms
+    beam_entry["evaluate_host_beam_ms_per_batch"] = lm_ms
     print(f"card: {card}")
-    print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry]}))
+    print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry, beam_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

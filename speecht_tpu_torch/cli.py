@@ -10,13 +10,13 @@ runs the host DSP and touches no card, ``preprocess --device`` runs the
 DSP on the card and ``preprocess --device cpu`` runs the same torch DSP
 on the CPU. ``train`` has every flag of the JAX ``train`` on one device
 (``--spec-augment``, ``--profile-steps`` and ``--verbose-summaries`` among
-them); ``evaluate --language-model`` and ``search`` run the LM-fused host
-beam; ``evaluate --from-audio`` decodes the FLACs and runs the front end
-on the device. Paths of the JAX package that the port does not have yet
-raise an error that names the flag; none is ignored: ``--device-beam``
-(and so ``--rescore``), ``--seq-parallel`` and
-``--data-parallel``/``--model-parallel`` above 1. ``record`` and
-``export`` come with later parts of the port.
+them); ``evaluate --language-model`` and ``search`` run the LM-fused
+beam, on the host or with ``--device-beam`` on the device (``--rescore N``
+and ``--device-lm-hbm-gb`` with it); ``evaluate --from-audio`` decodes the
+FLACs and runs the front end on the device. Paths of the JAX package that
+the port does not have yet raise an error that names the flag; none is
+ignored: ``--seq-parallel`` and ``--data-parallel``/``--model-parallel``
+above 1. ``record`` and ``export`` come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -129,14 +129,26 @@ class CLI:
         )
         parser.add_argument(
             "--device-beam", dest="device_beam", action="store_true",
-            help="Beam search on the device (not ported yet).",
+            help="Run the LM-fused beam search on the device itself "
+            "(batch-parallel) instead of the host C++ beam; the "
+            "language-model directory may hold the ARPA source or a KenLM "
+            "PROBING binary. Note: with an LM and pruning, near-tied "
+            "hypotheses can resolve differently than the host beam (f32 "
+            "device vs f64 host tie-breaking); divergences are "
+            "score-bounded (see ops/beam_device.py).",
         )
         parser.add_argument(
             "--device-lm-hbm-gb", dest="device_lm_hbm_gb", type=float,
             default=8.0,
+            help="With --device-beam: HBM budget for the LM tables; a "
+            "larger LM falls back to the host beam with a message.",
         )
         parser.add_argument(
             "--rescore", dest="rescore_n", type=int, default=0,
+            help="With --device-beam: pure-acoustic device beam keeps N "
+            "hypotheses, the host LM rescores and picks the best — faster "
+            "than fused search and compatible with KenLM binary LMs. "
+            "0 = fused search (default).",
         )
 
     def _add_preprocess_parser(self):
@@ -304,8 +316,6 @@ class CLI:
     def _check_ported(self):
         flags = self.parsed
         unported = []
-        if getattr(flags, "device_beam", False):
-            unported.append("--device-beam")
         if getattr(flags, "seq_parallel", 0) > 1:
             unported.append("--seq-parallel")
         if flags.data_parallel > 1 or flags.model_parallel > 1:

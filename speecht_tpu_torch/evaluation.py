@@ -8,7 +8,8 @@ for ``--from-audio`` ``wire_sr``, ``determine_input_size``,
 (``--dev``/``--test``) for ``--step-count`` batches (0 = the whole split),
 computes the loss and the greedy decode on the device, or with
 ``--language-model`` the loss and the blank collapse on the device and
-the LM-fused beam on the host (``ops/beam.py``). With ``--from-audio``
+the LM-fused beam on the host, or with ``--device-beam`` on the device
+(``ops/beam.py``). With ``--from-audio``
 the batches are FLAC audio decoded on the host at the corpus's own rate
 (when every file shares one with a polyphase plan to 22050 Hz; else
 resampled to 22050 on the host), shipped as int16, and the front end

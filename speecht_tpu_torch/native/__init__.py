@@ -2,13 +2,13 @@
 and the CTC prefix beam search.
 
 Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance,
-continuation beam, ARPA -> binary writer and KenLM table dump:
+continuation beam and ARPA -> binary writer:
 :func:`flac_decode`, :func:`resample`, :func:`load_audio`,
-:func:`npz_load_sample`, :func:`lm_is_binary`, :class:`NGramLM` and
-:func:`ctc_beam_search`. The sources in this directory are the port's own
+:func:`npz_load_sample`, :func:`lm_is_binary`, :class:`NGramLM`,
+:func:`ctc_beam_search` and :func:`kenlm_dump`. The sources in this directory are the port's own
 copies of the JAX package's ``speecht_native.cpp`` (FLAC and resampling),
 ``npz_reader.cpp`` (without its inflate branch), ``lm.h``,
-``beam_search.cpp`` and the reader half of ``kenlm_binary.cpp``; built
+``beam_search.cpp`` and the reader and dump of ``kenlm_binary.cpp``; built
 with the same arithmetic flags (``-O3``, no ``-march=native``, no
 ``-ffast-math``) they decode and resample bit for bit as the JAX
 package's library, and the same emissions give the same ids.
@@ -136,6 +136,28 @@ _SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "stt_kenlm_dump_open": ([ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int32], _P),
+    "stt_kenlm_dump_close": ([_P], None),
+    "stt_kenlm_dump_order": ([_P], ctypes.c_int32),
+    "stt_kenlm_dump_unigram_slots": ([_P], ctypes.c_int64),
+    "stt_kenlm_dump_unigrams": (
+        [_P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)],
+        ctypes.c_int32,
+    ),
+    "stt_kenlm_dump_table_count": ([_P, ctypes.c_int32], ctypes.c_int64),
+    "stt_kenlm_dump_table": (
+        [
+            _P,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_float),
+        ],
+        ctypes.c_int32,
+    ),
+    "stt_kenlm_dump_vocab_bytes": ([_P], ctypes.c_int64),
+    "stt_kenlm_dump_vocab": ([_P, ctypes.c_char_p, ctypes.c_int64], ctypes.c_int32),
     "stt_ctc_beam_search": (
         [
             ctypes.POINTER(ctypes.c_float),  # log_probs
@@ -227,6 +249,68 @@ class NGramLM:
         if handle:
             self._lib.stt_lm_free(handle)
             self._handle = None
+
+
+def kenlm_dump(path: str) -> dict:
+    """Dump a KenLM PROBING binary's raw tables for the device beam.
+
+    Returns ``{"order", "words" (list, id order), "uni_prob", "uni_back"
+    (float32 [slots]), "tables" {n: (key_lo u32, key_hi u32, prob f32,
+    backoff f32)} for n in 2..order}``. The n-gram keys are KenLM's chained
+    64-bit hashes of word-id sequences; the device beam recomputes the same
+    hash from its word-id history (``ops/beam_device.py``), so no word
+    sequence has to be recovered to probe them. A file that cannot be read
+    raises ValueError.
+    """
+    lib = load()
+    err = ctypes.create_string_buffer(512)
+    h = lib.stt_kenlm_dump_open(path.encode(), err, len(err))
+    if not h:
+        raise ValueError(
+            f"cannot read KenLM binary {path}: "
+            f"{err.value.decode(errors='replace')}"
+        )
+    f32 = ctypes.POINTER(ctypes.c_float)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    try:
+        order = int(lib.stt_kenlm_dump_order(h))
+        slots = int(lib.stt_kenlm_dump_unigram_slots(h))
+        uni_prob = np.zeros(slots, np.float32)
+        uni_back = np.zeros(slots, np.float32)
+        lib.stt_kenlm_dump_unigrams(
+            h, uni_prob.ctypes.data_as(f32), uni_back.ctypes.data_as(f32)
+        )
+        nbytes = int(lib.stt_kenlm_dump_vocab_bytes(h))
+        buf = ctypes.create_string_buffer(max(nbytes, 1))
+        if lib.stt_kenlm_dump_vocab(h, buf, nbytes) != 0:
+            raise ValueError("vocab dump overflow")
+        words = (
+            buf.raw[:nbytes].decode(errors="replace").split("\0")[:-1]
+            if nbytes
+            else []
+        )
+        tables = {}
+        for n in range(2, order + 1):
+            cnt = int(lib.stt_kenlm_dump_table_count(h, n))
+            lo = np.zeros(cnt, np.uint32)
+            hi = np.zeros(cnt, np.uint32)
+            prob = np.zeros(cnt, np.float32)
+            back = np.zeros(cnt, np.float32)
+            if cnt and lib.stt_kenlm_dump_table(
+                h, n, lo.ctypes.data_as(u32), hi.ctypes.data_as(u32),
+                prob.ctypes.data_as(f32), back.ctypes.data_as(f32),
+            ) != 0:
+                raise ValueError(f"table dump failed for order {n}")
+            tables[n] = (lo, hi, prob, back)
+        return {
+            "order": order,
+            "words": words,
+            "uni_prob": uni_prob,
+            "uni_back": uni_back,
+            "tables": tables,
+        }
+    finally:
+        lib.stt_kenlm_dump_close(h)
 
 
 def ctc_beam_search(

@@ -2,11 +2,11 @@
 //
 // The port's own copy of the reader half of the JAX package's
 // `speecht_tpu/native/kenlm_binary.cpp` (the `KenlmBinaryScorer`,
-// `load_kenlm_binary_scorer` and `is_kenlm_binary`), in a namespace of its
-// own; the ARPA -> binary writer and the raw-table dump are not copied
-// (nothing of the host beam calls them). It reads the reference's released
-// language-model bundle (`kenlm-model.binary` + `vocabulary`) directly, with
-// no KenLM dependency:
+// `load_kenlm_binary_scorer`, `is_kenlm_binary` and the raw-table dump the
+// device beam's LM tables are built from, exported as `stt_kenlm_dump_*`),
+// in a namespace of its own; the ARPA -> binary writer is not copied. It
+// reads the reference's released language-model bundle
+// (`kenlm-model.binary` + `vocabulary`) directly, with no KenLM dependency:
 //
 //   [Sanity header]  magic "mmap lm http://kheafield.com/code format
 //                    version 5", float/endianness canaries
@@ -513,3 +513,79 @@ bool is_kenlm_binary(const char* path) {
 }
 
 }  // namespace speecht_torch
+
+// ---------------------------------------------------------------------------
+// ctypes surface: the raw-table dump for the device beam's LM tables
+// (speecht_tpu_torch/ops/beam_device.py DeviceLM.from_binary)
+// ---------------------------------------------------------------------------
+
+using speecht_torch::KenlmBinaryScorer;
+
+// the library is built with -fvisibility=hidden: only these are exported
+#define STT_EXPORT __attribute__((visibility("default")))
+
+extern "C" {
+
+STT_EXPORT void* stt_kenlm_dump_open(const char* path, char* err,
+                                     int32_t errlen) {
+  auto scorer = std::make_unique<KenlmBinaryScorer>();
+  std::string e;
+  if (!scorer->load(path, &e)) {
+    if (err && errlen > 0) {
+      std::snprintf(err, (size_t)errlen, "%s", e.c_str());
+    }
+    return nullptr;
+  }
+  return scorer.release();
+}
+
+STT_EXPORT void stt_kenlm_dump_close(void* h) {
+  delete static_cast<KenlmBinaryScorer*>(h);
+}
+
+STT_EXPORT int32_t stt_kenlm_dump_order(void* h) {
+  return static_cast<KenlmBinaryScorer*>(h)->dump_order();
+}
+
+STT_EXPORT int64_t stt_kenlm_dump_unigram_slots(void* h) {
+  return (int64_t)static_cast<KenlmBinaryScorer*>(h)->dump_unigram_slots();
+}
+
+STT_EXPORT int32_t stt_kenlm_dump_unigrams(void* h, float* prob,
+                                           float* backoff) {
+  static_cast<KenlmBinaryScorer*>(h)->dump_unigrams(prob, backoff);
+  return 0;
+}
+
+STT_EXPORT int64_t stt_kenlm_dump_table_count(void* h, int32_t n) {
+  return (int64_t)static_cast<KenlmBinaryScorer*>(h)->dump_table_count(n);
+}
+
+STT_EXPORT int32_t stt_kenlm_dump_table(void* h, int32_t n, uint32_t* lo,
+                                        uint32_t* hi, float* prob,
+                                        float* backoff) {
+  return static_cast<KenlmBinaryScorer*>(h)->dump_table(n, lo, hi, prob,
+                                                        backoff);
+}
+
+// vocabulary surface forms, nul-joined in id order
+STT_EXPORT int64_t stt_kenlm_dump_vocab_bytes(void* h) {
+  const auto& words = static_cast<KenlmBinaryScorer*>(h)->dump_words();
+  int64_t total = 0;
+  for (const auto& w : words) total += (int64_t)w.size() + 1;
+  return total;
+}
+
+STT_EXPORT int32_t stt_kenlm_dump_vocab(void* h, char* out, int64_t cap) {
+  const auto& words = static_cast<KenlmBinaryScorer*>(h)->dump_words();
+  int64_t pos = 0;
+  for (const auto& w : words) {
+    if (pos + (int64_t)w.size() + 1 > cap) return 1;
+    std::memcpy(out + pos, w.data(), w.size());
+    pos += (int64_t)w.size();
+    out[pos++] = '\0';
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,17 +1,26 @@
-"""Beam-search CTC decoding with n-gram LM shallow fusion (the host beam).
+"""Beam-search CTC decoding with n-gram LM shallow fusion.
 
-Counterpart of the host-beam half of ``speecht_tpu/ops/beam.py``. The
-device part runs the model, the CTC loss (the alpha kernel on the card,
-without its history) and the blank collapse; the collapsed log-probs are
-read back and a C++ prefix beam search with the n-gram LM
-(``speecht_tpu_torch/native``) decodes each row on a thread pool.
+Counterpart of ``speecht_tpu/ops/beam.py``. The device part runs the
+model, the CTC loss (the alpha kernel on the card, without its history)
+and the blank collapse; then one of three searches decodes:
+
+  default:         the host C++ prefix beam with the n-gram LM
+                   (``speecht_tpu_torch/native``) on a thread pool, over
+                   the collapsed log-probs read back from the card;
+  --device-beam:   the same LM-fused search on the device
+                   (``ops/beam_device.py``; ``csrc/beam_device.cu`` on the
+                   card, one launch a batch): only the [B] lengths are
+                   read back before it, the log-probs stay on the card;
+                   the LM may be an ARPA text or a KenLM PROBING binary;
+  --rescore N:     with --device-beam: a pure-acoustic device beam keeps
+                   the N best, and one native call per hypothesis adds
+                   the LM bonus on the host and picks the winner.
+
 :meth:`BeamSearchDecoder.eval_batches` launches batch N+1's device part
-before batch N's beam runs, so the card computes while the host searches.
-
-The three fusion weights are plain call arguments, so ``search`` can
-re-decode the same emissions under each candidate's weights. The JAX
-package's ``--device-beam`` (and ``--rescore``, which needs it) is not
-ported: it raises.
+before batch N's search runs, so the card computes while the host
+searches. The three fusion weights are plain call arguments, so
+``search`` can re-decode the same emissions under each candidate's
+weights.
 """
 
 from __future__ import annotations
@@ -84,12 +93,17 @@ def find_arpa_file(directory: str) -> str | None:
 class BeamSearchDecoder:
     """Batch beam-search decoder with optional n-gram LM shallow fusion.
 
-    ``lm_config`` is a :class:`LanguageModelConfig`. The beam runs on a
-    pool of ``num_threads`` threads (default ``min(32, os.cpu_count())``);
-    :meth:`close` shuts it down. With ``feature_type`` the batches are
-    raw-audio ``AudioBatch``es (``evaluate --from-audio``): the device
-    front end for that feature type (audio at ``wire_sr``) runs ahead of
-    the model.
+    ``lm_config`` is a :class:`LanguageModelConfig`. The host beam and the
+    rescoring run on a pool of ``num_threads`` threads (default
+    ``min(32, os.cpu_count())``); :meth:`close` shuts it down. With
+    ``feature_type`` the batches are raw-audio ``AudioBatch``es
+    (``evaluate --from-audio``): the device front end for that feature
+    type (audio at ``wire_sr``) runs ahead of the model.
+
+    ``lm_config.device_beam`` runs the search on the model's device. The
+    LM tables must fit ``device_lm_hbm_gb``: an LM whose file already
+    looks too large (2.6x a binary's size, 1.2x an ARPA's), or whose
+    tables are, falls back to the host beam with a printed message.
     """
 
     def __init__(self, model, lm_config: LanguageModelConfig,
@@ -98,15 +112,15 @@ class BeamSearchDecoder:
                  wire_sr: int | None = None):
         self.lm_config = lm_config
         self.blank_threshold = lm_config.blank_threshold
-        if lm_config.rescore_n and not lm_config.device_beam:
+        self.device_beam = bool(lm_config.device_beam)
+        self.rescore_n = int(lm_config.rescore_n or 0)
+        if self.rescore_n and not self.device_beam:
             raise ValueError("--rescore requires --device-beam")
-        if lm_config.device_beam:
-            raise NotImplementedError(
-                "--device-beam: the beam on the device is not ported to "
-                "speecht_tpu_torch yet (use `speecht-cli` for it)"
-            )
         self.lm = None
-        if lm_config.language_model:
+        self._beam_fn = None
+        if self.device_beam:
+            self._make_device_beam(next(model.parameters()).device)
+        if not self.device_beam and lm_config.language_model:
             model_path, vocab = find_lm_files(lm_config.language_model)
             self.lm = native.NGramLM(model_path, vocab)
         self._loss_fn = tstep.make_loss_fn(model)
@@ -119,6 +133,60 @@ class BeamSearchDecoder:
             )
         self.num_threads = num_threads or min(32, os.cpu_count() or 8)
         self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
+
+    def _make_device_beam(self, device) -> None:
+        """The device search; with ``--rescore`` also the host LM. Without
+        room for the LM tables it prints why and clears ``device_beam``."""
+        from speecht_tpu_torch.ops import beam_device
+
+        cfg = self.lm_config
+        if self.rescore_n:
+            # two stages: a pure-acoustic device beam keeps the n-best,
+            # the host LM rescores them (no device tables needed)
+            if cfg.language_model:
+                model_path, vocab = find_lm_files(cfg.language_model)
+                self.lm = native.NGramLM(model_path, vocab)
+            self._beam_fn = beam_device.make_device_beam_search(
+                cfg.beam_width, lm=None, n_best=self.rescore_n
+            )
+            return
+        device_lm = None
+        if cfg.language_model:
+            model_path, vocab = find_lm_files(cfg.language_model)
+            budget_gb = float(cfg.device_lm_hbm_gb)
+            # the tables measure about 2.6x a PROBING binary and 1.2x an
+            # ARPA text: an LM that cannot fit is not even parsed
+            factor = 2.6 if native.lm_is_binary(model_path) else 1.2
+            est_gb = os.path.getsize(model_path) * factor / (1 << 30)
+            fallback = (
+                "falling back to the host beam (use --rescore N "
+                "for a device-accelerated path with large LMs)"
+            )
+            if est_gb > budget_gb:
+                print(
+                    f"device LM tables would need ~{est_gb:.1f} GiB "
+                    f"HBM (> --device-lm-hbm-gb {budget_gb:.1f}); " + fallback
+                )
+                self.device_beam = False
+                return
+            try:
+                # the exact check runs before any copy to the device
+                device_lm = beam_device.DeviceLM.cached(
+                    model_path, vocab,
+                    hbm_budget_bytes=int(budget_gb * (1 << 30)),
+                    device=device,
+                )
+            except beam_device.DeviceLMBudgetError as e:
+                print(
+                    f"device LM tables need "
+                    f"{e.bytes_needed / (1 << 30):.1f} GiB HBM "
+                    f"(> --device-lm-hbm-gb {budget_gb:.1f}); " + fallback
+                )
+                self.device_beam = False
+                return
+        self._beam_fn = beam_device.make_device_beam_search(
+            cfg.beam_width, lm=device_lm
+        )
 
     def close(self) -> None:
         self._pool.shutdown()
@@ -140,17 +208,30 @@ class BeamSearchDecoder:
         )
         return avg_loss, logp, new_lengths
 
+    def launch(self, batch):
+        """Launches the device part of ``batch`` and the readback of what
+        the search needs on the host: returns (the log-probs left on the
+        device for the device beam, else None; the readback of the loss,
+        (the host beam) the log-probs, and the lengths)."""
+        avg_loss, logp, lengths = self.device_part(batch)
+        if self.device_beam:
+            return logp, start_readback([avg_loss, lengths])
+        return None, start_readback([avg_loss, logp, lengths])
+
     def decode_emissions(
         self,
-        logp: np.ndarray,
+        logp,
         lengths: np.ndarray,
         lm_weight: float | None = None,
         word_count_weight: float | None = None,
         valid_word_count_weight: float | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Host beam over [B, T, C] log-probs -> (ids [B, T], lengths [B]).
+        """Beam over [B, T, C] log-probs -> (ids [B, T'], lengths [B]).
 
-        A weight left at None takes the config's value.
+        The host beam takes numpy log-probs (T' = T). The device beam
+        takes them as a tensor on its device and searches the first
+        T' = a multiple of 32 of the longest row's frames (at least 32, at
+        most T). A weight left at None takes the config's value.
         """
         cfg = self.lm_config
         lm_w = cfg.lm_weight if lm_weight is None else lm_weight
@@ -166,6 +247,21 @@ class BeamSearchDecoder:
         )
 
         B, T, _C = logp.shape
+        if self.device_beam:
+            t_max = int(np.max(lengths)) if B else 0
+            t_bucket = min(T, max(32, -(-t_max // 32) * 32))
+            emissions = torch.as_tensor(logp)[:, :t_bucket].contiguous()
+            lens = torch.as_tensor(lengths, dtype=torch.int32).to(emissions.device)
+            if self.rescore_n:
+                # stage 1: the pure-acoustic n-best (all fusion weights 0)
+                ids, lens, scores = self._beam_fn(emissions, lens, 0.0, 0.0, 0.0)
+                return self._rescore(
+                    ids.cpu().numpy(), lens.cpu().numpy(),
+                    scores.cpu().numpy(), lm_w, wc_w, vwc_w,
+                )
+            ids, out_lengths = self._beam_fn(emissions, lens, lm_w, wc_w, vwc_w)
+            return ids.cpu().numpy(), out_lengths.cpu().numpy()
+
         out = np.full((B, T), vocabulary.PAD_ID, dtype=np.int32)
         out_lengths = np.zeros(B, dtype=np.int32)
 
@@ -185,30 +281,72 @@ class BeamSearchDecoder:
             out_lengths[i] = len(ids)
         return out, out_lengths
 
+    def _rescore(self, ids, lens, scores, lm_w, wc_w, vwc_w):
+        """Stage 2 of ``--rescore``: add the fusion bonus to each n-best
+        hypothesis on the host and keep the best per row.
+
+        The bonus mirrors the fused beam: per completed word (every word of
+        a final hypothesis, the last included) lm_weight * ln 10 *
+        log10 P(w | <s> + the last 4 words) + word_count_weight +
+        valid_word_count_weight * [in the vocabulary].
+        """
+        B, N, T = ids.shape
+        out = np.full((B, T), vocabulary.PAD_ID, np.int32)
+        out_lens = np.zeros(B, np.int32)
+        ln10 = float(np.log(10.0))
+
+        def bonus(hyp_ids, hyp_len):
+            s = vocabulary.ids_to_sentence(hyp_ids[:hyp_len])
+            if self.lm is not None:
+                lm_sum, n_words, n_valid = self.lm.score_sentence(s)
+                return lm_w * ln10 * lm_sum + wc_w * n_words + vwc_w * n_valid
+            return wc_w * len([w for w in s.split(" ") if w])
+
+        def one(b):
+            totals = [
+                scores[b, n] + bonus(ids[b, n], int(lens[b, n]))
+                if scores[b, n] > -1e29
+                else -np.inf
+                for n in range(N)
+            ]
+            return int(np.argmax(totals))
+
+        for b, best in enumerate(self._pool.map(one, range(B))):
+            n = int(lens[b, best])
+            out[b, :n] = ids[b, best, :n]
+            out_lens[b] = n
+        return out, out_lens
+
     def eval_step(self, batch):
         """(loss, decoded ids, decoded lengths) as numpy for one batch on
-        the device: the device part, its readback, then the beam."""
-        avg_loss, logp, lengths = finish_readback(
-            *start_readback(self.device_part(batch))
-        )
-        return avg_loss, *self.decode_emissions(logp, lengths)
+        the device: the device part, its readback, then the search."""
+        return self._finish_batch(None, self.launch(batch))[1:]
 
     def eval_batches(self, batches):
         """Pipelined evaluation over (host batch, device batch) pairs:
         yields (host batch, loss, decoded, lengths) as numpy.
 
         Batch N+1's device part and readback are launched before batch N's
-        beam runs, so the card works while the host searches.
+        search runs, so the card works while the host searches.
         """
         pending = None
         for host_batch, device_batch in batches:
-            readback = start_readback(self.device_part(device_batch))
+            launched = self.launch(device_batch)
             if pending is not None:
                 yield self._finish_batch(*pending)
-            pending = (host_batch, readback)
+            pending = (host_batch, launched)
         if pending is not None:
             yield self._finish_batch(*pending)
 
-    def _finish_batch(self, host_batch, readback):
-        avg_loss, logp, lengths = finish_readback(*readback)
+    def finish(self, launched):
+        """(loss, log-probs, lengths) of a :meth:`launch`: the loss and the
+        lengths on the host, the log-probs where the search reads them."""
+        logp, readback = launched
+        if logp is None:
+            return finish_readback(*readback)
+        avg_loss, lengths = finish_readback(*readback)
+        return avg_loss, logp, lengths
+
+    def _finish_batch(self, host_batch, launched):
+        avg_loss, logp, lengths = self.finish(launched)
         return host_batch, avg_loss, *self.decode_emissions(logp, lengths)

@@ -9,11 +9,12 @@ global WER)`` on the dev split; mutations add Gaussian noise of
 ``--population-size``, seeded with Candidate(1.0, 0.0, 0.0); ``--ui``
 shows it through curses.
 
-The weights are runtime arguments of the host beam, so the device part
+The weights are runtime arguments of the search, so the device part
 (model, CTC loss, blank collapse) runs once per dev batch, and every
-candidate only re-runs the beam over the same emissions read back from
-the card. Weights come from the port's own checkpoint in
-``<train-dir>/<run-name>``.
+candidate only re-runs the beam over the same emissions: read back from
+the card for the host beam, left on the card with ``--device-beam`` (each
+candidate then re-runs only the beam kernel). Weights come from the
+port's own checkpoint in ``<train-dir>/<run-name>``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import numpy as np
 
 from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.evaluation import Evaluation
-from speecht_tpu_torch.execution import finish_readback, start_readback
 from speecht_tpu_torch.metrics import EvalStatistics
 from speecht_tpu_torch.ops.beam import BeamSearchDecoder
 
@@ -103,12 +103,12 @@ class LanguageModelParameterSearch(Evaluation):
 
     def _collect_emissions(self, beam: BeamSearchDecoder):
         """The device part once over the dev subset; returns, per batch,
-        (host batch, collapsed log-probs, their lengths) on the host."""
+        (host batch, collapsed log-probs, their lengths): the log-probs on
+        the host for the host beam, on the device for ``--device-beam``,
+        the lengths on the host."""
         cached = []
         for host_batch, device_batch in self.create_loader():
-            _loss, logp, lengths = finish_readback(
-                *start_readback(beam.device_part(device_batch))
-            )
+            _loss, logp, lengths = beam.finish(beam.launch(device_batch))
             cached.append((host_batch, logp, lengths))
         return cached
 

@@ -7,6 +7,8 @@ have 29 classes. Dense label arrays are padded with ``PAD_ID``.
 
 from __future__ import annotations
 
+APOSTROPHE_ID = 26
+SPACE_ID = 27
 SIZE = 28  # number of real (non-blank) classes
 BLANK_ID = SIZE  # CTC blank = 28
 NUM_CLASSES = SIZE + 1

@@ -12,8 +12,9 @@
 - ``BeamSearchDecoder``: its device part (the plain CTC recursion on the
   CPU) and beam against JAX's decoder on the same weights and batches,
   and its pipelined ``eval_batches`` against sequential ``eval_step``, as
-  ``test_beam.py`` checks JAX's; ``--device-beam`` and ``--rescore``
-  alone raise. Beam pools use 2 threads.
+  ``test_beam.py`` checks JAX's; with ``--device-beam`` against JAX's
+  device-beam decoder; ``--rescore`` alone raises. Beam pools use 2
+  threads.
 """
 
 import flax.linen as nn
@@ -230,11 +231,69 @@ def test_eval_batches_match_sequential_eval_step(models, lm_dir):
         beam.close()
 
 
-def test_device_beam_raises(models, lm_dir):
-    _jmodel, _params, model = models
-    with pytest.raises(NotImplementedError, match="--device-beam"):
-        BeamSearchDecoder(model, _config(LanguageModelConfig, lm_dir,
-                                         device_beam=True))
+def test_device_beam_raises(models, lm_dir, tmp_path, monkeypatch):
+    """The device-beam decoder decodes on the CPU as JAX's does: each
+    batch through the plain search over the LM tables gives JAX's
+    device-beam decoder's ids. (The name is that of the refusal this
+    decoder raised before it was ported; it no longer raises.)"""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    jmodel, params, model = models
+    ours = BeamSearchDecoder(
+        model, _config(LanguageModelConfig, lm_dir, device_beam=True),
+        num_threads=2,
+    )
+    theirs = jbeam.BeamSearchDecoder(
+        jmodel, _config(JaxLMConfig, lm_dir, device_beam=True), num_threads=2
+    )
+    try:
+        assert ours.device_beam and ours.lm is None
+        for seed in range(3):
+            batch = _batch(seed)
+            loss, decoded, dec_lengths = ours.eval_step(
+                to_device(batch, torch.device("cpu"), "float32")
+            )
+            jloss, jdecoded, jdec_lengths = theirs.eval_step(
+                params, JaxBatch(**vars(batch))
+            )
+            assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+            np.testing.assert_array_equal(dec_lengths, np.asarray(jdec_lengths))
+            np.testing.assert_array_equal(decoded, np.asarray(jdecoded))
+            assert dec_lengths[2] == 0  # the padding row decodes to nothing
+    finally:
+        ours.close()
+
+
+@pytest.mark.parametrize("lm_kind", ["arpa", "binary"])
+def test_rescore_matches_jax(models, lm_dir, lm_kind, tmp_path):
+    """``--device-beam --rescore 4``: the pure-acoustic device n-best,
+    rescored by the host LM (ARPA or KenLM binary), decodes as JAX's."""
+    jmodel, params, model = models
+    d = tmp_path / "lm"
+    d.mkdir()
+    (d / f"model.{lm_kind}").write_bytes((lm_dir / f"model.{lm_kind}").read_bytes())
+    (d / "vocabulary").write_bytes((lm_dir / "vocabulary").read_bytes())
+    ours = BeamSearchDecoder(
+        model, _config(LanguageModelConfig, d, device_beam=True, rescore_n=4),
+        num_threads=2,
+    )
+    theirs = jbeam.BeamSearchDecoder(
+        jmodel, _config(JaxLMConfig, d, device_beam=True, rescore_n=4),
+        num_threads=2,
+    )
+    try:
+        assert ours.lm is not None and ours._beam_fn.spec.n_best == 4
+        for seed in range(3):
+            batch = _batch(seed)
+            _loss, decoded, dec_lengths = ours.eval_step(
+                to_device(batch, torch.device("cpu"), "float32")
+            )
+            _jl, jdecoded, jdec_lengths = theirs.eval_step(
+                params, JaxBatch(**vars(batch))
+            )
+            np.testing.assert_array_equal(dec_lengths, np.asarray(jdec_lengths))
+            np.testing.assert_array_equal(decoded, np.asarray(jdecoded))
+    finally:
+        ours.close()
 
 
 def test_rescore_without_device_beam_raises(models, lm_dir):

@@ -1,0 +1,154 @@
+"""The device beam kernel (``csrc/beam_device.cu``) against its plain
+PyTorch version on the card.
+
+Marked ``cuda``: skipped where there is no card. This file imports torch,
+numpy and the port only (no JAX), so it runs on the card's machine:
+
+    python -m pytest tests/test_torch_beam_device_cuda.py -m cuda -q
+
+Both sides run the same float32 operations in the same order on the card,
+so the ids and lengths must be equal on every row and the n-best scores
+equal to 1e-6 relative; two kernel calls must be bit-equal. Cases:
+``chip_smoke.py`` phase 2d's at a smaller batch (the order-3 LM of
+``chip_smoke.write_lm``, no LM, n-best, W=1024, ragged rows, order-1 and
+order-6 LMs, KenLM-keyed tables), the shape edges (W=1, W=2, W=1024 at
+K=8, K=29 at W=128, T=1, every row of length 0), a launch the kernel
+cannot take raising before it is made (a width or an LM table of a shape
+it does not read), and the kernel, never the plain version, taking a
+CUDA tensor.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from speecht_tpu_torch.ops import beam_device, beam_device_cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card: see README)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def lm_dirs(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("beam_lm"))
+    lm_dir, _n = chip_smoke.write_lm(root)
+    order1, order6 = chip_smoke.lm_variants(root, lm_dir)
+    return {"order3": lm_dir, "order1": order1, "order6": order6}
+
+
+def _lm(lm_dirs, name, device):
+    if name is None:
+        return None
+    if name == "kenlm":
+        return chip_smoke.kenlm_keyed_lm(lm_dirs["order3"], device)
+    d = lm_dirs[name]
+    return beam_device.DeviceLM(f"{d}/model.arpa", f"{d}/vocabulary", device=device)
+
+
+def _check(lm, lengths, device, seed=0, **kwargs):
+    logp, lengths = chip_smoke.beam_emissions(seed, lengths)
+    result = chip_smoke.check_beam("test", lm, logp, lengths, device, **kwargs)
+    assert result["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "lm_name,kwargs",
+    [
+        ("order3", {}),
+        (None, {}),
+        ("order3", {"n_best": 8}),
+        ("order1", {}),
+        ("order6", {}),
+        ("kenlm", {}),
+        ("order3", {"n_best": 4, "weights": (1.5, 0.5, 1.2)}),
+    ],
+    ids=["order3", "no_lm", "n_best", "order1", "order6", "kenlm", "weights"],
+)
+def test_kernel_matches_plain(cuda_device, lm_dirs, lm_name, kwargs):
+    lengths = np.random.RandomState(3).randint(130, 231, size=12)
+    _check(_lm(lm_dirs, lm_name, cuda_device), lengths, cuda_device, **kwargs)
+
+
+@pytest.mark.cuda
+def test_ragged_lengths(cuda_device, lm_dirs):
+    _check(_lm(lm_dirs, "order3", cuda_device), [0, 1, 2, 5, 50, 130, 200, 230],
+           cuda_device, seed=2, n_best=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "W,top_k,lengths",
+    [
+        (1, 8, [40, 17]),
+        (2, 8, [40, 17]),
+        (1024, 8, [20, 13, 1]),
+        (128, 0, [60, 31]),
+        (100, 8, [1, 1, 1]),
+        (100, 8, [0, 0, 0]),
+    ],
+    ids=["W1", "W2", "W1024", "K29", "T1", "all_empty"],
+)
+def test_shape_edges(cuda_device, lm_dirs, W, top_k, lengths):
+    lm = _lm(lm_dirs, "order6", cuda_device)
+    _check(lm, lengths, cuda_device, seed=W, W=W, top_k=top_k)
+    _check(None, lengths, cuda_device, seed=W + 1, W=W, top_k=top_k)
+
+
+@pytest.mark.cuda
+def test_refused_shapes_raise(cuda_device):
+    logp = torch.zeros(2, 4, 29, device=cuda_device)
+    lengths = torch.full((2,), 4, dtype=torch.int32, device=cuda_device)
+    before = beam_device_cuda.BEAM_DEVICE.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_device.make_device_beam_search(1024, prune_top_k=0)(
+            logp, lengths, 0.8, 0.0, 2.3)
+    with pytest.raises(ValueError, match="more than 1024"):
+        beam_device.make_device_beam_search(1025)(logp, lengths, 0.8, 0.0, 2.3)
+    with pytest.raises(ValueError, match="lengths must be int32"):
+        beam_device.make_device_beam_search(8)(logp, lengths.long(), 0.8, 0.0, 2.3)
+    assert beam_device_cuda.BEAM_DEVICE.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "table,shape",
+    [("arena_v", (4, 3)), ("arena_k", (2, 2)), ("words_v", (4, 1)),
+     ("words_k", (4, 4)), ("uni", (2,))],
+)
+def test_misshaped_tables_raise(cuda_device, lm_dirs, table, shape):
+    lm = _lm(lm_dirs, "order3", cuda_device)
+    rows = lm.tables[table].shape[0]
+    lm.tables = dict(lm.tables, **{table: torch.zeros(
+        rows, *shape, dtype=torch.int32, device=cuda_device)})
+    logp, lengths = chip_smoke.beam_emissions(5, [12, 7])
+    before = beam_device_cuda.BEAM_DEVICE.launches
+    with pytest.raises(ValueError, match=table):
+        beam_device.make_device_beam_search(16, lm=lm)(
+            torch.from_numpy(logp).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device), 0.8, 0.0, 2.3)
+    assert beam_device_cuda.BEAM_DEVICE.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_the_plain_version(cuda_device, lm_dirs, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(beam_device, "plain_beam_search", refuse)
+    lm = _lm(lm_dirs, "order3", cuda_device)
+    logp, lengths = chip_smoke.beam_emissions(4, [30, 12])
+    before = beam_device_cuda.BEAM_DEVICE.launches
+    ids, lens = beam_device.make_device_beam_search(16, lm=lm)(
+        torch.from_numpy(logp).to(cuda_device),
+        torch.from_numpy(lengths).to(cuda_device), 0.8, 0.0, 2.3,
+    )
+    torch.cuda.synchronize()
+    assert beam_device_cuda.BEAM_DEVICE.launches == before + 1
+    assert ids.device.type == "cuda" and tuple(ids.shape) == (2, 30)
+    assert int(lens.max()) > 0

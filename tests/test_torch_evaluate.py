@@ -10,7 +10,9 @@ and the loss must agree to its printed 2 decimals (within 0.01: the
 reader shuffles each run anew, so the batch's rows are summed in another
 order, and a loss near 190 can straddle a rounding boundary). The same
 holds for ``evaluate --language-model`` with ``test_beam.py``'s ARPA LM
-and a vocabulary file (beam width 8).
+and a vocabulary file (beam width 8), on the host beam and with
+``--device-beam`` (fused, and ``--rescore 4``); a ``--device-lm-hbm-gb``
+the LM does not fit prints JAX's message and decodes on the host beam.
 """
 
 import os
@@ -23,6 +25,7 @@ from speecht_tpu.cli import CLI as JaxCLI
 from test_beam import ARPA
 from speecht_tpu_torch.cli import CLI
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
+from speecht_tpu_torch.ops import beam_device
 from speecht_tpu_torch.weights import params_to_jax
 
 WIDTH_FLAGS = ["--base-channels", "16", "--wide-channels", "32"]
@@ -133,6 +136,64 @@ def test_evaluate_language_model_matches_jax(workdir, capsys):
     assert stats.global_letter_error_rate != greedy.global_letter_error_rate
 
 
+@pytest.mark.parametrize("rescore", [[], ["--rescore", "4"]], ids=["fused", "rescore"])
+def test_evaluate_device_beam_matches_jax(workdir, capsys, tmp_path, monkeypatch, rescore):
+    """``evaluate --device-beam`` (and ``--rescore 4``) on the CPU prints
+    the JAX CLI's decode lines, loss within 0.01."""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    lm_dir = workdir / "lm"
+    lm_dir.mkdir(exist_ok=True)
+    (lm_dir / "model.arpa").write_text(ARPA)
+    (lm_dir / "vocabulary").write_text("the\ncat\ndog\nsat\n")
+    lm_flags = ["--language-model", str(lm_dir), "--beam-width", "8",
+                "--device-beam", *rescore]
+    jax_stats = JaxCLI(_argv(workdir, *lm_flags)).run()
+    jax_out = capsys.readouterr().out
+    stats = CLI(_argv(workdir, "--device", "cpu", *lm_flags)).run()
+    out = capsys.readouterr().out
+
+    pairs, loss, tail = _parse(out)
+    jax_pairs, jax_loss, jax_tail = _parse(jax_out)
+    assert len(pairs) == 7 and stats.decodings_counter == 7
+    assert pairs == jax_pairs
+    assert len(loss) == len(jax_loss) == 1
+    assert abs(loss[0] - jax_loss[0]) <= 0.01
+    assert tail == jax_tail
+    assert stats.global_letter_error_rate == pytest.approx(
+        jax_stats.global_letter_error_rate
+    )
+
+
+def test_device_lm_budget_falls_back_to_the_host_beam(workdir, capsys, tmp_path,
+                                                     monkeypatch):
+    """``--device-lm-hbm-gb`` too small: JAX's message, then the host beam."""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    lm_dir = workdir / "lm"
+    lm_dir.mkdir(exist_ok=True)
+    (lm_dir / "model.arpa").write_text(ARPA)
+    (lm_dir / "vocabulary").write_text("the\ncat\ndog\nsat\n")
+    flags = ["--language-model", str(lm_dir), "--beam-width", "8"]
+    host = CLI(_argv(workdir, "--device", "cpu", *flags)).run()
+    host_pairs = _parse(capsys.readouterr().out)[0]
+    # below the estimate from the file's size, then between it and the
+    # tables' exact size (the check before the copy to the device)
+    estimate = 1.2 * os.path.getsize(lm_dir / "model.arpa")
+    exact = beam_device.DeviceLM(
+        str(lm_dir / "model.arpa"), str(lm_dir / "vocabulary")
+    ).hbm_bytes()
+    assert estimate < exact
+    for budget in (estimate / 2, (estimate + exact) / 2):
+        stats = CLI(_argv(workdir, "--device", "cpu", *flags, "--device-beam",
+                          "--device-lm-hbm-gb", repr(budget / (1 << 30)))).run()
+        out = capsys.readouterr().out
+        assert "falling back to the host beam (use --rescore N for a " \
+            "device-accelerated path with large LMs)" in out
+        assert _parse(out)[0] == host_pairs
+        assert stats.global_letter_error_rate == pytest.approx(
+            host.global_letter_error_rate
+        )
+
+
 def test_evaluate_writes_eval_loss_summary(workdir, capsys):
     argv = [a for a in _argv(workdir, "--device", "cpu") if a != "--no-save"]
     CLI(argv + ["--run-name", "summary"]).run()
@@ -160,7 +221,7 @@ def test_missing_weights_is_fatal(workdir):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--language-model", "lm", "--device-beam"],
+        ["--language-model", "lm", "--device-beam", "--data-parallel", "2"],
         ["--from-audio", "--data-parallel", "2"],
         ["--seq-parallel", "2"],
         ["--data-parallel", "2"],

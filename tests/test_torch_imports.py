@@ -108,6 +108,19 @@ def test_every_module_of_the_beam_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_device_beam_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.ops.beam_device",
+        "speecht_tpu_torch.ops.beam_device_cuda",
+        "speecht_tpu_torch.ops.beam",
+        "speecht_tpu_torch.native",
+        "speecht_tpu_torch.parameter_search",
+        "speecht_tpu_torch.cli",
+    ):
+        assert m in mods
+
+
 def test_every_module_of_the_audio_slice_is_checked():
     mods = set(_modules())
     for m in (

@@ -8,7 +8,7 @@ and the port's ``ckpt-0.pt``), ``test_beam.py``'s ARPA LM, and both CLIs
 in this process with float32 compute and transfer. ``random`` and
 ``np.random`` are seeded alike before each side's run, so the candidates
 drawn and mutated line up: the ``candidate-precise:`` lines must be
-equal. The search's flags and defaults are JAX's, and its ``run_type``
+equal, on the host beam and with ``--device-beam``. The search's flags and defaults are JAX's, and its ``run_type``
 is ``"other"``.
 """
 
@@ -116,6 +116,25 @@ def test_search_matches_jax(workdir, capsys):
     assert candidates[0].stats.decodings_counter == 6
 
 
+def test_search_device_beam_matches_jax(workdir, capsys, tmp_path, monkeypatch):
+    """``search --device-beam`` on the CPU scores its candidates as the
+    JAX CLI does; the emissions stay where the device part left them."""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    flags = [*SEARCH_FLAGS, "--device-beam"]
+    random.seed(11)
+    np.random.seed(11)
+    jax_candidates = JaxCLI(_argv(workdir, "jax", *flags)).run()
+    jax_lines = _candidate_lines(capsys.readouterr().out)
+
+    random.seed(11)
+    np.random.seed(11)
+    candidates = CLI(_argv(workdir, "torch", *flags, "--device", "cpu")).run()
+    lines = _candidate_lines(capsys.readouterr().out)
+    assert len(lines) == 4 and lines == jax_lines
+    assert [str(c) for c in candidates] == [str(c) for c in jax_candidates]
+    assert candidates[0].stats.decodings_counter == 6
+
+
 def test_search_flags_and_defaults_match_jax():
     ours = CLI(["search"]).parsed
     theirs = JaxCLI(["search"]).parsed
@@ -147,7 +166,7 @@ def test_search_without_checkpoint_is_fatal(workdir):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--device-beam"], ["--data-parallel", "2"]]
+    "flags", [["--device-beam", "--data-parallel", "2"], ["--data-parallel", "2"]]
 )
 def test_unported_search_paths_raise(workdir, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
