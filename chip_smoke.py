@@ -134,6 +134,33 @@ drives the port's main path through its normal entry point, and fails
    a batch, ``ctc_beta`` and conv0 never); ms per batch, utterances/s and
    one batch's FLAC decode, batch build, int16 pin + H2D, front end on the
    card, eval step and metrics, each alone; the phase's wall time.
+3h. ``export`` through ``CLI([...]).run()`` on a port checkpoint of the
+   phase-3 weights: ``--weights`` (the files hold the checkpoint's values)
+   and ``--stablehlo`` for ``--export-platforms cuda,cpu``, then
+   ``--from-audio --wire-sr 16000``; the loaded cuda program on phase 3's
+   first batch (B=64, T=1024) and at B=16, T=768 from the same artifact,
+   against the eager eval step (phase 4's share of equal tokens) and the
+   eager forward (logits to phase 4d's tolerance), launching no kernel;
+   the cpu program once; the from-audio program on phase 3f's 64 FLACs
+   against ``evaluate --from-audio``'s step; the artifacts' bytes, the
+   export seconds and ms a batch of the programs and the eager step.
+3i. ``record --audio-source`` on 4 of phase 3f's 16 kHz FLACs through
+   ``CLI([...]).run()``: one-shot greedy (phase-3 weights), with
+   ``--language-model`` (host beam), ``--device-beam`` and
+   ``--device-beam`` on a KenLM binary that ``native.lm_write_binary``
+   writes from the phase-3d ARPA (the 3d LM; the phase-3 weights
+   calibrated as 3d's, on the FLACs' ``preprocess --device`` features, so
+   the collapse keeps about a quarter of the frames); ``--streaming``
+   greedy and with the LM; one-shot and streaming with
+   SPEECHT_PALLAS_CONV0=1. Launch counts reset before each run and read
+   after (``ctc_alpha`` once a one-shot recording, ``beam_device`` once a
+   recording with ``--device-beam``, ``conv0`` only with the env var,
+   nothing but conv0 on the streaming forward); each one-shot transcript
+   equals the offline decode of the same post-processed audio, the binary
+   LM's equal the ARPA's, each streaming final equals ``finalize``'s
+   offline transcript; ms a recording, ms a chunk and the real-time
+   factor, and one recording's resample, host features, eval step and
+   decode, each alone.
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
@@ -2528,6 +2555,397 @@ def audio_breakdown(data_dir, weights, card):
     )
 
 
+# -- phase 3h: export, the serving artifact ----------------------------------
+
+# the exported program and the eager eval step run the same bf16 model on
+# the same card; phase 4's share of equal tokens and phase 4d's tolerance
+# (1e-4 of each value plus 1e-4) hold the program to the eager step
+EXPORT_SECOND_SHAPE = (16, 768)  # a second batch size and frame count
+
+
+def token_share(ids_a, lens_a, ids_b, lens_b):
+    """Equal tokens over each row's longer decode, as phase 4 counts."""
+    total = same = 0
+    for i in range(ids_a.shape[0]):
+        width = int(max(lens_a[i], lens_b[i]))
+        total += width
+        same += int((ids_a[i, :width] == ids_b[i, :width]).sum())
+    return same / max(total, 1), same, total
+
+
+def check_program(label, got, want_ids, want_lens, want_logits=None):
+    """The loaded program's (ids, lengths, logits) against the eager
+    step's: phase 4's token share, phase 4d's tolerance on the logits."""
+    ids, lens, logits = (t.cpu().numpy() for t in got)
+    share, same, total = token_share(ids, lens, want_ids, want_lens)
+    err = None
+    if want_logits is not None:
+        err = float(np.abs(logits - want_logits).max())
+        bad = np.abs(logits - want_logits) > BEAM_LOGP_ATOL + BEAM_LOGP_RTOL * np.abs(want_logits)
+        check(not bad.any(), f"export {label}: logits off the eager step's by up to {err!r}")
+    print(f"export {label}: decoded tokens equal {same}/{total} = {share!r} (at least "
+          f"{PARITY_MIN_TOKEN_SHARE}); logits max abs diff {err!r} (tolerance "
+          f"{BEAM_LOGP_ATOL} + {BEAM_LOGP_RTOL} x |value|)")
+    check(share >= PARITY_MIN_TOKEN_SHARE, f"export {label}: decodes disagree")
+
+
+def export_path(work, data_dir, weights, audio_dir, kernels, card):
+    """Phase 3h: ``export --weights --stablehlo`` and ``--from-audio
+    --wire-sr 16000`` through the CLI on a port checkpoint of the phase-3
+    weights; the loaded cuda programs against the eager steps."""
+    from speecht_tpu_torch import serving
+    from speecht_tpu_torch.data import features_device
+    from speecht_tpu_torch.data.pipeline import build_audio_batch, to_device
+    from speecht_tpu_torch.train.step import make_audio_eval_step, make_eval_step
+    from speecht_tpu_torch.weights import load_weight_dir
+
+    train_dir = os.path.join(work, "export_train")
+    write_port_checkpoint(os.path.join(train_dir, "exp"), weights)
+    base = ["export", "--train-dir", train_dir, "--run-name", "exp", "--data-dir", data_dir,
+            "--log-dir", os.path.join(work, "log"), "--export-platforms", "cuda,cpu"]
+    artifact = os.path.join(work, "artifact")
+    audio_artifact = os.path.join(work, "artifact_audio")
+    weights_out = os.path.join(work, "exported_weights")
+    seconds = {}
+    for label, extra in (
+            ("features", ["--weights", weights_out, "--stablehlo", artifact]),
+            ("from audio", ["--stablehlo", audio_artifact, "--from-audio",
+                            "--wire-sr", str(AUDIO_SR)])):
+        t0 = time.perf_counter()
+        _results, out = run_cli(base + extra)
+        seconds[label] = time.perf_counter() - t0
+        print(f"export {label}: " + " | ".join(out.strip().splitlines()))
+    model = lm_model(weights, torch.device("cuda"))
+    for name, value in load_weight_dir(weights_out, model).items():
+        check(torch.equal(value, dict(model.named_parameters())[name].cpu()),
+              f"export --weights: {name} is not the checkpoint's")
+
+    program, manifest = serving.load_stablehlo(artifact, torch.device("cuda"))
+    print(f"export features: artifact {manifest['bytes']} bytes, platforms "
+          f"{manifest['platforms']}, export {seconds['features']!r} s (both platforms, "
+          f"with --weights); conv_0: {manifest['conv0_path']}")
+    eval_step = make_eval_step(model)
+    batch = to_device(one_batch(data_dir), torch.device("cuda"), "float32")
+    B2, T2 = EXPORT_SECOND_SHAPE
+    small = types.SimpleNamespace(
+        features=batch.features[:B2, :T2].contiguous(),
+        seq_lengths=batch.seq_lengths[:B2].clamp(max=T2),
+        labels=batch.labels[:B2, :T2 // 4].contiguous(),
+        label_lengths=batch.label_lengths[:B2].clamp(max=T2 // 4))
+    forward = serving.make_infer_fn(model)
+    for k in kernels:
+        k.launches = 0
+    results = {}
+    for label, b in (("B=64, T=1024", batch), (f"B={B2}, T={T2}", small)):
+        results[label] = program(b.features, b.seq_lengths)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(not any(launches.values()), f"the exported program launched kernels: {launches}")
+    for label, b in (("B=64, T=1024", batch), (f"B={B2}, T={T2}", small)):
+        _loss, ids, lens = eval_step(b)
+        logits = forward(b.features, b.seq_lengths)[2]
+        check_program(f"features {label}", results[label], ids.cpu().numpy(),
+                      lens.cpu().numpy(), logits.cpu().numpy())
+    program_ms = time_ms(lambda: program(batch.features, batch.seq_lengths), 10)
+    eager_ms = time_ms(lambda: eval_step(batch), 10)
+    print(f"export features: the loaded program {program_ms!r} ms a batch (B=64, T=1024), "
+          f"the eager eval step (with its CTC loss) {eager_ms!r} ms; on {card}")
+    cpu_program, _ = serving.load_stablehlo(artifact, "cpu")
+    cpu_out = cpu_program(batch.features[:1, :128].cpu(),
+                          batch.seq_lengths[:1].cpu().clamp(max=128))
+    check(cpu_out[0].shape == (1, 64) and cpu_out[0].device.type == "cpu",
+          "the cpu program did not run on the CPU")
+
+    audio_program, audio_manifest = serving.load_stablehlo(audio_artifact, torch.device("cuda"))
+    print(f"export from audio: artifact {audio_manifest['bytes']} bytes, export "
+          f"{seconds['from audio']!r} s (both platforms); granularity "
+          f"{audio_manifest['audio_granularity_samples']} samples at {audio_manifest['wire_sr']} Hz")
+    audio_batch = to_device(build_audio_batch(audio_samples(audio_dir), audio_bucket()),
+                            torch.device("cuda"))
+    for k in kernels:
+        k.launches = 0
+    got = audio_program(audio_batch.audio, audio_batch.num_samples)
+    torch.cuda.synchronize()
+    audio_launches = {k.name: k.launches for k in kernels}
+    check(not any(audio_launches.values()),
+          f"the from-audio program launched kernels: {audio_launches}")
+    front_end = features_device.make_front_end("power", wire_sr=AUDIO_SR)
+    _loss, ids, lens = make_audio_eval_step(model, front_end)(audio_batch)
+    logits = serving.make_audio_infer_fn(model, "power", AUDIO_SR)(
+        audio_batch.audio, audio_batch.num_samples)[2]
+    check_program("from audio, phase 3f's 64 FLACs against evaluate --from-audio's step", got,
+                  ids.cpu().numpy(), lens.cpu().numpy(), logits.cpu().numpy())
+    audio_ms = time_ms(lambda: audio_program(audio_batch.audio, audio_batch.num_samples), 5)
+    print(f"export from audio: the loaded program {audio_ms!r} ms a batch of 64 (16 kHz int16, "
+          f"{audio_batch.audio.shape[1]} samples); on {card}")
+    return {name: launches[name] + audio_launches[name] for name in launches}
+
+
+# -- phase 3i: record ---------------------------------------------------------
+
+RECORD_FILES = 4
+
+
+@contextlib.contextmanager
+def chunk_times():
+    """Per streamed chunk: the host seconds from one read of the audio
+    source to the next (the resample, the recognizer's features and window,
+    the fused partial and the print) and the chunk's audio seconds."""
+    from speecht_tpu_torch.record_utils import FileAudioSource
+
+    times = []
+    open_stream = FileAudioSource.open_input_stream
+
+    @contextlib.contextmanager
+    def timed_stream(self):
+        with open_stream(self) as read_chunk:
+            last = [None]
+
+            def read():
+                now = time.perf_counter()
+                if last[0] is not None:
+                    times[-1] = (now - last[0], times[-1][1])
+                chunk = read_chunk()
+                last[0] = time.perf_counter()
+                times.append((None, len(chunk) / self.rate))
+                return chunk
+
+            yield read
+
+    FileAudioSource.open_input_stream = timed_stream
+    try:
+        yield times
+    finally:
+        FileAudioSource.open_input_stream = open_stream
+        # the last chunk's iteration ends in the source's end, not a read
+        if times and times[-1][0] is None:
+            times.pop()
+
+
+def offline_transcripts(model, flacs, beam=None):
+    """The one-shot composition by hand: the post chain, the resample to
+    22050, the host features, a batch of one, the eval step (or the
+    beam decoder); one transcript a file."""
+    from speecht_tpu_torch import native, vocabulary
+    from speecht_tpu_torch.data.pipeline import single_batch, to_device
+    from speecht_tpu_torch.record_utils import FileAudioSource
+    from speecht_tpu_torch.recording import host_features
+    from speecht_tpu_torch.train.step import make_eval_step
+
+    step = beam.eval_step if beam is not None else make_eval_step(model)
+    source = FileAudioSource(flacs, rate=AUDIO_SR)
+    out = []
+    for _ in flacs:
+        audio = native.resample(source.record()[0], AUDIO_SR, 22050)
+        batch = to_device(single_batch(host_features(audio, "power", 22050)),
+                          torch.device("cuda"), "float32")
+        _loss, ids, lens = step(batch)
+        ids, lens = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in (ids, lens))
+        out.append(vocabulary.ids_to_sentence(ids[0, :lens[0]]))
+    return out
+
+
+def record_breakdown(model, flac, lm_dir, card):
+    """Where one recording's time goes: the resample and the host features
+    on the host clock, the eval step on the card (H2D included, then a
+    synchronise), the decode (greedy: the readback and the text; with the
+    LM: the host beam over the collapsed log-probs)."""
+    from speecht_tpu_torch import native, vocabulary
+    from speecht_tpu_torch.data.pipeline import single_batch, to_device
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+    from speecht_tpu_torch.record_utils import FileAudioSource
+    from speecht_tpu_torch.recording import host_features
+    from speecht_tpu_torch.train.step import make_eval_step
+
+    audio = FileAudioSource([flac], rate=AUDIO_SR).record()[0]
+    step = make_eval_step(model)
+    beam = BeamSearchDecoder(model, LanguageModelConfig(language_model=lm_dir))
+    stages = {}
+    for _ in range(2):  # the second pass is the one kept
+        t0 = time.perf_counter()
+        resampled = native.resample(audio, AUDIO_SR, 22050)
+        t1 = time.perf_counter()
+        feats = host_features(resampled, "power", 22050)
+        t2 = time.perf_counter()
+        batch = to_device(single_batch(feats), torch.device("cuda"), "float32")
+        _loss, ids, lens = step(batch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        vocabulary.ids_to_sentence(ids[0, :lens[0]].cpu().numpy())
+        t4 = time.perf_counter()
+        launched = beam.launch(batch)
+        _loss, logp, lengths = beam.finish(launched)
+        t5 = time.perf_counter()
+        beam.decode_emissions(logp, lengths)
+        t6 = time.perf_counter()
+        stages = {"resample 16000 -> 22050": t1 - t0, "host features": t2 - t1,
+                  "eval step on the card": t3 - t2, "greedy decode readback + text": t4 - t3,
+                  "LM device part + readback": t5 - t4, "host beam (LM)": t6 - t5}
+    # the same step back to back on the card (CUDA events): set beside the
+    # single call that follows the host's work above
+    stages["eval step, 10 calls back to back (each)"] = time_ms(lambda: step(batch), 10) / 1e3
+    beam.close()
+    print(f"record breakdown, one recording of {len(audio) / AUDIO_SR:.2f} s ({feats.shape[0]} "
+          "frames): " + ", ".join(f"{k} {v * 1e3!r} ms" for k, v in stages.items())
+          + f"; on {card}")
+
+
+def record_path(work, weights, lm_dir, audio_dir, audio_cache, kernels, card):
+    """Phase 3i: ``record --audio-source`` on 4 of phase 3f's FLACs through
+    the CLI: one-shot greedy, with the LM (host beam), with
+    ``--device-beam``, and ``--device-beam`` on a KenLM binary written by
+    ``native.lm_write_binary``; ``--streaming`` greedy and with the LM;
+    one-shot and streaming with SPEECHT_PALLAS_CONV0=1. The LM runs take
+    the phase-3 weights calibrated as phase 3d's, but on the features of
+    phase 3f's FLACs (``audio_cache``, the ``preprocess --device`` cache),
+    so the collapse keeps about a quarter of a recording's frames and the
+    beams have letters to search."""
+    import glob
+    import shutil
+
+    from speecht_tpu_torch import native
+    from speecht_tpu_torch.ops import conv0
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+    from speecht_tpu_torch.ops.streaming import StreamingRecognizer
+    from speecht_tpu_torch.record_utils import AudioSourceExhausted, FileAudioSource
+
+    t_phase = time.perf_counter()
+    lm_weights, _kept = lm_weights_for(os.path.join(work, "record"), audio_cache, weights)
+    flacs = sorted(glob.glob(os.path.join(audio_dir, "test", "*", "*", "*.flac")))[:RECORD_FILES]
+    check(len(flacs) == RECORD_FILES, f"record: {len(flacs)} FLACs found")
+    bin_dir = os.path.join(work, "lm_binary")
+    os.makedirs(bin_dir)
+    t0 = time.perf_counter()
+    native.lm_write_binary(os.path.join(lm_dir, "model.arpa"),
+                           os.path.join(bin_dir, "kenlm-model.binary"))
+    shutil.copy(os.path.join(lm_dir, "vocabulary"), bin_dir)
+    print(f"record: wrote the phase-3d LM as a KenLM binary "
+          f"({os.path.getsize(os.path.join(bin_dir, 'kenlm-model.binary'))} bytes) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    common = ["record", "--audio-source", *flacs, "--train-dir", os.path.join(work, "train"),
+              "--log-dir", os.path.join(work, "log"), "--data-dir", audio_dir]
+    runs, results = {}, {}
+
+    def record(label, weights_dir, *extra, env=False):
+        argv = common + ["--reference-weights", weights_dir, *extra]
+        if env:
+            os.environ[conv0.ENV_VAR] = "1"
+        try:
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with chunk_times() as chunks:
+                result, out = run_cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop(conv0.ENV_VAR, None)
+        runs[label] = {k.name: k.launches for k in kernels}
+        results[label] = result
+        decoded = [ln for ln in out.replace("\r", "\n").splitlines() if ln.startswith("decoded:")]
+        if "--streaming" in extra:
+            check(isinstance(result, str) and decoded == [f"decoded: {result}"],
+                  f"record {label}: no final transcript")
+            busy = sum(t for t, _ in chunks)
+            audio_s = sum(a for _, a in chunks)
+            print(f"record {label}: final {result[:60]!r}; {len(chunks)} chunks of "
+                  f"{audio_s / len(chunks) * 1e3:.1f} ms of 16 kHz audio, "
+                  f"{busy / len(chunks) * 1e3!r} ms a chunk (read to read: resample, "
+                  f"features, window, partial), real-time factor {busy / audio_s!r}; "
+                  f"whole run with set-up {wall!r} s; kernel launches {runs[label]}; "
+                  f"on {card}")
+        else:
+            check(len(result) == RECORD_FILES and len(decoded) == RECORD_FILES,
+                  f"record {label}: {len(result)} transcripts for {RECORD_FILES} files")
+            print(f"record {label}: {[r[:30] for r in result]}; whole run with set-up "
+                  f"{wall / RECORD_FILES * 1e3!r} ms a recording; kernel launches "
+                  f"{runs[label]}; on {card}")
+        return result
+
+    # warm-up (cuDNN plans at these buckets)
+    record("warm-up", weights)
+    greedy = record("record", weights)
+    lm_flags = ["--language-model", lm_dir]
+    lm = record("record --language-model", lm_weights, *lm_flags)
+    beam = record("record --device-beam", lm_weights, *lm_flags, "--device-beam")
+    beam_bin = record("record --device-beam (KenLM binary)", lm_weights,
+                      "--language-model", bin_dir, "--device-beam")
+    stream = record("record --streaming", weights, "--streaming")
+    stream_lm = record("record --streaming --language-model", lm_weights, "--streaming",
+                       *lm_flags)
+    record("record (SPEECHT_PALLAS_CONV0=1)", weights, env=True)
+    record("record --streaming (SPEECHT_PALLAS_CONV0=1)", weights, "--streaming", env=True)
+
+    for label in ("record", "record --language-model", "record --device-beam",
+                  "record --device-beam (KenLM binary)", "record (SPEECHT_PALLAS_CONV0=1)"):
+        n = runs[label]
+        check(n["ctc_alpha"] == RECORD_FILES and n["ctc_beta"] == 0,
+              f"{label}: launches {n} (ctc_alpha once a recording)")
+        check(n["beam_device"] == (RECORD_FILES if "device-beam" in label else 0),
+              f"{label}: beam_device launches {n['beam_device']}")
+        check(n["conv0"] == (RECORD_FILES if "CONV0" in label else 0),
+              f"{label}: conv0 launches {n['conv0']}")
+    for label in ("record --streaming", "record --streaming --language-model",
+                  "record --streaming (SPEECHT_PALLAS_CONV0=1)"):
+        n = runs[label]
+        check(n["ctc_alpha"] == n["ctc_beta"] == n["beam_device"] == 0,
+              f"{label}: launches {n} (the forward alone)")
+        check((n["conv0"] > 0) == ("CONV0" in label), f"{label}: conv0 launches {n['conv0']}")
+
+    # each one-shot transcript against the offline decode of the same
+    # post-processed audio; the streaming finals against finalize's
+    check(all(any(results[label]) for label in (
+        "record", "record --language-model", "record --device-beam",
+        "record --streaming", "record --streaming --language-model")),
+        "record: a run decoded nothing, so its check would be vacuous")
+    model = lm_model(weights, torch.device("cuda"))
+    model_lm = lm_model(lm_weights, torch.device("cuda"))
+    check(greedy == offline_transcripts(model, flacs), "record: not the offline decode")
+    # conv_0's two bf16 paths round differently (one rounding after the
+    # bias against cuDNN's), so near ties may flip: reported, not checked
+    alike = sum(a == b for a, b in zip(results["record (SPEECHT_PALLAS_CONV0=1)"], greedy))
+    print(f"record: the conv0 kernel path decodes {alike} of {RECORD_FILES} recordings as "
+          "the cuDNN path does")
+    for label, got, cfg in (
+            ("record --language-model", lm, {}),
+            ("record --device-beam", beam, {"device_beam": True}),
+            ("record --device-beam (KenLM binary)", beam_bin,
+             {"device_beam": True, "language_model": bin_dir})):
+        decoder = BeamSearchDecoder(model_lm, LanguageModelConfig(**{"language_model": lm_dir,
+                                                                      **cfg}))
+        want = offline_transcripts(model_lm, flacs, decoder)
+        decoder.close()
+        check(got == want, f"{label}: not the offline decode: {got} vs {want}")
+    check(beam_bin == beam, "record --device-beam: the KenLM binary decodes otherwise than "
+          "the ARPA source")
+
+    def streamed(m):
+        """A recognizer holding the whole stream, resampled in one piece
+        (the streaming resampler is sample-exact against it)."""
+        chunks = []
+        with FileAudioSource(flacs, rate=AUDIO_SR).open_input_stream() as read:
+            while True:
+                try:
+                    chunks.append(read())
+                except AudioSourceExhausted:
+                    break
+        whole = native.resample(np.concatenate(chunks), AUDIO_SR, 22050)
+        rec = StreamingRecognizer(m, sample_rate=22050)
+        rec.accept_chunk(whole)
+        return rec
+
+    check(stream == streamed(model).finalize(), "record --streaming: not finalize's offline "
+          "transcript")
+    decoder = BeamSearchDecoder(model_lm, LanguageModelConfig(language_model=lm_dir))
+    check(stream_lm == streamed(model_lm).finalize(beam=decoder),
+          "record --streaming --language-model: not finalize's offline transcript")
+    decoder.close()
+    record_breakdown(model_lm, flacs[0], lm_dir, card)
+    print(f"record: phase 3i wall time {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 # -- phase 4: one batch, card vs CPU ----------------------------------------
 
 
@@ -2572,12 +2990,7 @@ def parity(data_dir, weights, conv0_path=False):
     check(taken == ((1, 1) if conv0_path else (0, 0)),
           f"{label}: conv0 kernel launches and plain calls {taken}")
     (lg, dg, ng), (lc, dc, nc) = outs["cuda"], outs["cpu"]
-    total = same = 0
-    for i in range(dg.shape[0]):
-        width = int(max(ng[i], nc[i]))
-        total += width
-        same += int((dg[i, :width] == dc[i, :width]).sum())
-    share = same / max(total, 1)
+    share, same, total = token_share(dg, ng, dc, nc)
     loss_rel = abs(lg - lc) / abs(lc)
     print(f"{label}: loss cuda {lg!r} cpu {lc!r} rel diff {loss_rel!r} "
           f"(tolerance {PARITY_LOSS_RTOL}); decoded tokens equal {same}/{total} "
@@ -3002,7 +3415,8 @@ def main() -> int:
               + str({k.name: k.launches for k in kernels}))
 
         # 3. evaluate; 3b. train; 3c. the conv0 path; 3d, 3e. the LM paths;
-        # 3f. the audio front end; 3g. the device beam; 4-4f. card vs CPU
+        # 3f. the audio front end; 3g. the device beam; 3h. export; 3i.
+        # record; 4-4f. card vs CPU
         eval_launches, data_dir, weights, steady_ms = main_path(work, kernels, card)
         breakdown(data_dir, weights, steady_ms, card)
         train_launches, train_ms = train_path(work, data_dir, weights, kernels, card)
@@ -3025,6 +3439,10 @@ def main() -> int:
         (audio_greedy, audio_lm, audio_beam, audio_cached, host_dir,
          device_dir) = audio_path(work, weights, lm_weights, lm_dir, kernels, card)
         beam_runs["evaluate --from-audio --language-model --device-beam"] = audio_beam
+        # 3h. export and the loaded program; 3i. record
+        export_launches = export_path(work, data_dir, weights, host_dir, kernels, card)
+        record_runs = record_path(work, weights, lm_dir, host_dir, device_dir, kernels, card)
+        record_runs["export (loaded program)"] = export_launches
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
 
@@ -3082,6 +3500,13 @@ def main() -> int:
         "evaluate --language-model": lm_launches["beam_device"],
         **{path: n["beam_device"] for path, n in beam_runs.items()},
     }
+    serving_paths = ("record", "record --device-beam", "record --streaming",
+                     "record --language-model", "record --device-beam (KenLM binary)",
+                     "record --streaming --language-model", "record (SPEECHT_PALLAS_CONV0=1)",
+                     "record --streaming (SPEECHT_PALLAS_CONV0=1)", "export (loaded program)")
+    for entry in (alpha_entry, conv0_entry, beam_entry):
+        entry["launches_by_path"].update(
+            {path: record_runs[path][entry["name"]] for path in serving_paths})
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["ms_in_evaluate_batch"] = beam_kernel_ms
     beam_entry["evaluate_device_beam_ms_per_batch"] = beam_lm_ms

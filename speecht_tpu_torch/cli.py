@@ -1,10 +1,11 @@
-"""Command line of the port: ``python -m speecht_tpu_torch {preprocess,train,evaluate,search} ...``.
+"""Command line of the port: ``python -m speecht_tpu_torch {preprocess,train,evaluate,record,search,export} ...``.
 
-Counterpart of ``speecht_tpu/cli.py``. The ``preprocess``, ``train``,
-``evaluate`` and ``search`` subcommands have the JAX package's base and
-per-command flags, with the same names and defaults, plus ``--device``.
-On ``train``, ``evaluate`` and ``search`` it is ``--device {cuda,cpu}``
-(default ``cuda``; without a card it raises). On ``preprocess`` it keeps
+Counterpart of ``speecht_tpu/cli.py``. The six subcommands have the JAX
+package's base and per-command flags, with the same names and defaults
+but one (``export --export-platforms`` names torch devices and defaults to
+``cuda,cpu``, not ``tpu,cpu``), plus ``--device``. On every subcommand
+but ``preprocess`` it is ``--device {cuda,cpu}`` (default ``cuda``;
+without a card it raises). On ``preprocess`` it keeps
 the JAX flag's meaning, the DSP on the accelerator: ``preprocess`` alone
 runs the host DSP and touches no card, ``preprocess --device`` runs the
 DSP on the card and ``preprocess --device cpu`` runs the same torch DSP
@@ -13,10 +14,19 @@ on the CPU. ``train`` has every flag of the JAX ``train`` on one device
 them); ``evaluate --language-model`` and ``search`` run the LM-fused
 beam, on the host or with ``--device-beam`` on the device (``--rescore N``
 and ``--device-lm-hbm-gb`` with it); ``evaluate --from-audio`` decodes the
-FLACs and runs the front end on the device. Paths of the JAX package that
-the port does not have yet raise an error that names the flag; none is
-ignored: ``--seq-parallel`` and ``--data-parallel``/``--model-parallel``
-above 1. ``record`` and ``export`` come with later parts of the port.
+FLACs and runs the front end on the device. ``record`` transcribes the
+microphone (pyaudio) or ``--audio-source`` files, one-shot or
+``--streaming``, greedy or with the LM (``recording.py``); it and
+``evaluate`` also take ``--reference-weights``. ``export`` writes the
+weights (``--weights``) and the serving artifact (``--stablehlo``, a
+``torch.export`` program a platform, ``serving.py``). Paths of the JAX
+package that the port does not have yet raise an error that names the
+flag; none is ignored: ``--seq-parallel`` and
+``--data-parallel``/``--model-parallel`` above 1.
+
+``main`` prints a RuntimeError, a FileNotFoundError or a ValueError (a
+flag's value refused, such as an odd ``--export-frames``) as one line and
+exits 1; library callers use ``CLI(argv).run()`` and get the exception.
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ class CLI:
         self._add_preprocess_parser()
         self._add_training_parser()
         self._add_evaluation_parser()
+        self._add_recording_parser()
         self._add_parameter_search_parser()
+        self._add_export_parser()
         self._parsed = None
 
     def _create_base_parser(self, device: bool = True) -> argparse.ArgumentParser:
@@ -252,18 +264,51 @@ class CLI:
             "whole front end (resample, framing, FFT, mel, normalize) on "
             "the device.",
         )
-        p.add_argument(
-            "--reference-weights", dest="reference_weights", type=str,
-            default=None,
-            help="Directory of .npy weights, in the reference's export "
-            "layout or the JAX package's `export --weights` layout.",
-        )
+        self._add_reference_weights_argument(p)
         p.add_argument(
             "--seq-parallel", dest="seq_parallel", type=int, default=0,
             help="Time-sharded conv stack (not ported yet).",
         )
         self._add_language_model_arguments(p)
         p.set_defaults(dataset="test", should_save=True)
+
+    @staticmethod
+    def _add_reference_weights_argument(parser):
+        parser.add_argument(
+            "--reference-weights", dest="reference_weights", type=str,
+            default=None,
+            help="Directory of .npy weights, in the reference's export "
+            "layout or the JAX package's `export --weights` layout.",
+        )
+
+    def _add_recording_parser(self):
+        p = self.subparsers.add_parser(
+            "record",
+            help="Record using your microphone and inspect the transcription.",
+            parents=[self.base_parser],
+        )
+        p.add_argument("--input-size", dest="input_size", type=int, default=128)
+        p.add_argument(
+            "--streaming", dest="streaming", action="store_true",
+            help="Low-latency incremental transcription while recording.",
+        )
+        p.add_argument(
+            "--feature-rate", dest="feature_rate", type=int, default=22050,
+            help="Resample captured audio to this rate before the features "
+            "(22050 = the rate of the preprocess cache the weights were "
+            "trained on; 16000 feeds the 16 kHz capture straight in).",
+        )
+        p.add_argument(
+            "--audio-source", dest="audio_source", type=str, nargs="+",
+            default=None, metavar="FILE",
+            help="Transcribe these audio files (flac, or float32 .npy at "
+            "16 kHz) through the record pipeline instead of a microphone; "
+            "one-shot mode takes each file as one gated utterance and "
+            "exits after the last, --streaming feeds them as one chunk "
+            "stream.",
+        )
+        self._add_reference_weights_argument(p)
+        self._add_language_model_arguments(p)
 
     def _add_parameter_search_parser(self):
         p = self.subparsers.add_parser(
@@ -284,6 +329,47 @@ class CLI:
         p.add_argument("--step-count", dest="step_count", type=int, default=1)
         self._add_language_model_arguments(p)
 
+    def _add_export_parser(self):
+        p = self.subparsers.add_parser(
+            "export", help="Export network details", parents=[self.base_parser]
+        )
+        p.add_argument("--weights", dest="export_weights_dir", type=str)
+        p.add_argument("--input-size", dest="input_size", type=int, default=128)
+        p.add_argument(
+            "--stablehlo", dest="export_stablehlo_dir", type=str,
+            help="Also export the inference program (conv stack + greedy "
+            "CTC decode, the weights inside) as a torch.export program a "
+            "platform that torch alone loads (see speecht_tpu_torch/serving.py).",
+        )
+        p.add_argument(
+            "--export-batch-size", dest="export_batch_size", type=int,
+            default=0,
+            help="Fix the artifact's batch dim (0 = shape-polymorphic).",
+        )
+        p.add_argument(
+            "--export-frames", dest="export_frames", type=int, default=0,
+            help="Fix the artifact's frame dim, must be even "
+            "(0 = shape-polymorphic over even frame counts).",
+        )
+        p.add_argument(
+            "--export-platforms", dest="export_platforms", type=str,
+            default="cuda,cpu",
+            help="Comma-separated torch devices to export a program for "
+            "(cuda, cpu); cuda needs a card.",
+        )
+        p.add_argument(
+            "--from-audio", dest="from_audio", action="store_true",
+            help="With --stablehlo: export the end-to-end program, int16 "
+            "raw audio in, the device front end (resample + feature DSP) "
+            "ahead of the conv stack and the greedy decode.",
+        )
+        p.add_argument(
+            "--wire-sr", dest="export_wire_sr", type=int, default=0,
+            help="With --stablehlo --from-audio: the rate the audio input "
+            "arrives at; the program resamples it to 22050 (0 = audio "
+            "already at 22050).",
+        )
+
     @property
     def parsed(self):
         if self._parsed is None:
@@ -293,6 +379,8 @@ class CLI:
                     parsed.run_type = "train"
                 elif parsed.command == "evaluate":
                     parsed.run_type = parsed.dataset
+                elif parsed.command == "record":
+                    parsed.run_type = "record"
                 else:
                     parsed.run_type = "other"
                 parsed.run_train_dir = parsed.train_dir + "/" + parsed.run_name
@@ -355,6 +443,14 @@ class CLI:
             )
 
             return LanguageModelParameterSearch(self.parsed).run()
+        if self.parsed.command == "record":
+            from speecht_tpu_torch.recording import Recording
+
+            return Recording(self.parsed).run()
+        if self.parsed.command == "export":
+            from speecht_tpu_torch.exporting import Exporting
+
+            return Exporting(self.parsed).run()
         from speecht_tpu_torch.evaluation import Evaluation
 
         return Evaluation(self.parsed).run()
@@ -363,9 +459,10 @@ class CLI:
 def main(argv=None):
     try:
         CLI(argv).run()
-    except (RuntimeError, FileNotFoundError) as e:
+    except (RuntimeError, FileNotFoundError, ValueError) as e:
         # user-actionable failures (no card, missing weights, a path not
-        # ported yet) print one line; library callers use CLI(argv).run()
+        # ported yet, a flag's value refused) print one line; library
+        # callers use CLI(argv).run()
         print(f"error: {e}", file=sys.stderr)
         sys.exit(1)
 

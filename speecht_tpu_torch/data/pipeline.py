@@ -4,7 +4,8 @@ Counterpart of ``speecht_tpu/data/pipeline.py`` (single process):
 
 - :func:`build_batch` pads features to the batch's longest utterance,
   rounded up to a time bucket, and labels to a width that is a function of
-  that bucket, so the set of batch shapes stays small.
+  that bucket, so the set of batch shapes stays small; :func:`single_batch`
+  is ``record``'s batch of one without labels.
   :func:`build_audio_batch` does the same for raw audio (``--from-audio``),
   in samples.
 - :func:`batch_iterator` groups a sample generator into such batches,
@@ -93,6 +94,13 @@ def build_batch(
         label_lengths = np.pad(label_lengths, (0, B - n))
 
     return Batch(features, seq_lengths, labels, label_lengths)
+
+
+def single_batch(features: np.ndarray, time_bucket: int = 128) -> Batch:
+    """Batch of one without labels (``record``): time rounds up to a
+    bucket, the label width is 1 and the label length 0."""
+    return build_batch([(features, np.zeros(0, dtype=np.int32))],
+                       time_bucket=time_bucket, label_bucket=1)
 
 
 def build_audio_batch(

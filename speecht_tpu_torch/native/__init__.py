@@ -1,14 +1,15 @@
 """The port's host C++: audio decoding, the cache reader, the n-gram LM
 and the CTC prefix beam search.
 
-Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance,
-continuation beam and ARPA -> binary writer:
+Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance:
 :func:`flac_decode`, :func:`resample`, :func:`load_audio`,
-:func:`npz_load_sample`, :func:`lm_is_binary`, :class:`NGramLM`,
-:func:`ctc_beam_search` and :func:`kenlm_dump`. The sources in this directory are the port's own
-copies of the JAX package's ``speecht_native.cpp`` (FLAC and resampling),
-``npz_reader.cpp`` (without its inflate branch), ``lm.h``,
-``beam_search.cpp`` and the reader and dump of ``kenlm_binary.cpp``; built
+:func:`npz_load_sample`, :func:`lm_is_binary`, :func:`lm_write_binary`,
+:class:`NGramLM`, :func:`ctc_beam_search`, :func:`ctc_beam_search_cont`
+(the continuation search of streaming partials) and :func:`kenlm_dump`.
+The sources in this directory are the port's own copies of the JAX
+package's ``speecht_native.cpp`` (FLAC and resampling), ``npz_reader.cpp``
+(without its inflate branch), ``lm.h``, ``beam_search.cpp`` and
+``kenlm_binary.cpp`` (the reader, the dump and the writer); built
 with the same arithmetic flags (``-O3``, no ``-march=native``, no
 ``-ffast-math``) they decode and resample bit for bit as the JAX
 package's library, and the same emissions give the same ids.
@@ -105,6 +106,10 @@ _SIGNATURES = {
         None,
     ),
     "stt_lm_is_binary": ([ctypes.c_char_p], ctypes.c_int),
+    "stt_lm_write_binary": (
+        [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
     "stt_free": ([_P], None),
     "stt_flac_decode_file": (
         [
@@ -175,6 +180,26 @@ _SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "stt_ctc_beam_search_cont": (
+        [
+            ctypes.POINTER(ctypes.c_float),  # log_probs
+            ctypes.c_int64,  # T
+            ctypes.c_int32,  # C
+            ctypes.c_int32,  # blank_id
+            ctypes.c_int32,  # beam_width
+            _P,  # lm
+            ctypes.c_float,  # lm_weight
+            ctypes.c_float,  # word_count_weight
+            ctypes.c_float,  # valid_word_count_weight
+            ctypes.c_int32,  # prune_top_k
+            ctypes.c_char_p,  # context_text
+            ctypes.c_int32,  # last_char_id
+            ctypes.c_int32,  # ended_in_blank
+            ctypes.POINTER(ctypes.c_int32),  # out_ids
+            ctypes.c_int32,  # out_capacity
+        ],
+        ctypes.c_int,
+    ),
 }
 
 
@@ -195,6 +220,19 @@ def load() -> ctypes.CDLL:
 def lm_is_binary(path: str) -> bool:
     """True when ``path`` is a KenLM binary ("mmap lm ..." magic)."""
     return bool(load().stt_lm_is_binary(path.encode()))
+
+
+def lm_write_binary(arpa_path: str, out_path: str) -> None:
+    """Convert an ARPA model to KenLM's PROBING binary format; a file that
+    cannot be read or written raises ValueError."""
+    err = ctypes.create_string_buffer(512)
+    rc = load().stt_lm_write_binary(
+        arpa_path.encode(), out_path.encode(), err, len(err)
+    )
+    if rc != 0:
+        raise ValueError(
+            f"binary conversion failed: {err.value.decode(errors='replace')}"
+        )
 
 
 class NGramLM:
@@ -313,6 +351,17 @@ def kenlm_dump(path: str) -> dict:
         lib.stt_kenlm_dump_close(h)
 
 
+def _emissions(log_probs: np.ndarray, blank_id: int, beam_width: int) -> np.ndarray:
+    log_probs = np.ascontiguousarray(log_probs, dtype=np.float32)
+    if log_probs.ndim != 2:
+        raise ValueError(f"log_probs must be [T, C], got {log_probs.shape}")
+    if not 0 <= blank_id < log_probs.shape[1]:
+        raise ValueError(f"blank_id {blank_id} is not a class of {log_probs.shape[1]}")
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be at least 1, got {beam_width}")
+    return log_probs
+
+
 def ctc_beam_search(
     log_probs: np.ndarray,
     beam_width: int = 100,
@@ -324,14 +373,8 @@ def ctc_beam_search(
     prune_top_k: int = 8,
 ) -> np.ndarray:
     """Prefix beam search over [T, C] natural-log emissions -> decoded ids."""
-    log_probs = np.ascontiguousarray(log_probs, dtype=np.float32)
-    if log_probs.ndim != 2:
-        raise ValueError(f"log_probs must be [T, C], got {log_probs.shape}")
+    log_probs = _emissions(log_probs, blank_id, beam_width)
     T, C = log_probs.shape
-    if not 0 <= blank_id < C:
-        raise ValueError(f"blank_id {blank_id} is not a class of {C}")
-    if beam_width < 1:
-        raise ValueError(f"beam_width must be at least 1, got {beam_width}")
     out = np.zeros(max(T, 1), dtype=np.int32)
     n = load().stt_ctc_beam_search(
         log_probs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
@@ -344,6 +387,52 @@ def ctc_beam_search(
         word_count_weight,
         valid_word_count_weight,
         prune_top_k,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(out),
+    )
+    return out[:n]
+
+
+def ctc_beam_search_cont(
+    log_probs: np.ndarray,
+    context_text: str = "",
+    last_char_id: int = -1,
+    ended_in_blank: bool = True,
+    beam_width: int = 100,
+    lm: NGramLM | None = None,
+    lm_weight: float = 0.8,
+    word_count_weight: float = 0.0,
+    valid_word_count_weight: float = 2.3,
+    blank_id: int = 28,
+    prune_top_k: int = 8,
+) -> np.ndarray:
+    """Continuation prefix beam over a tail of emissions.
+
+    ``context_text``'s complete words seed the LM history and its trailing
+    partial word prefixes the first word completed here;
+    ``last_char_id``/``ended_in_blank`` carry the committed greedy path's
+    CTC collapse state across the boundary. Returns only the tail's
+    decoded ids (the caller owns the committed text). With no context it
+    equals :func:`ctc_beam_search`. ``ops/streaming.py``'s LM-fused
+    partials call it.
+    """
+    log_probs = _emissions(log_probs, blank_id, beam_width)
+    T, C = log_probs.shape
+    out = np.zeros(max(T, 1), dtype=np.int32)
+    n = load().stt_ctc_beam_search_cont(
+        log_probs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        T,
+        C,
+        blank_id,
+        beam_width,
+        lm._handle if lm is not None else None,
+        lm_weight,
+        word_count_weight,
+        valid_word_count_weight,
+        prune_top_k,
+        context_text.encode(),
+        last_char_id,
+        1 if ended_in_blank else 0,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         len(out),
     )

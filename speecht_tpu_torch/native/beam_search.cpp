@@ -6,8 +6,9 @@
 // ids. It differs in what it exports, not in its arithmetic: its C++ sits
 // in a namespace of its own, the library is built with hidden visibility
 // and exports only the `stt_` C functions below (so it and the JAX
-// package's library can live in one process), and it has no continuation
-// entry point (streaming) and no ARPA -> binary writer.
+// package's library can live in one process). Beside the search it exports
+// the continuation search of streaming partials (`stt_ctc_beam_search_cont`)
+// and the ARPA -> KenLM binary writer (`stt_lm_write_binary`).
 //
 // The device produces (blank-collapsed) log-probs and this file scores
 // prefixes with:
@@ -316,8 +317,9 @@ struct Node {
 };
 
 // Push a completed word id into a 4-slot history ring (most recent
-// last); returns the new length. The in-beam fusion and the sentence
-// scorer (stt_lm_score_sentence) must both apply this exact rule.
+// last); returns the new length. The in-beam fusion, the sentence
+// scorer (stt_lm_score_sentence) and the streaming context seed must all
+// apply this exact rule.
 inline int push_ring(uint32_t* hist, int len, uint32_t wid) {
   if (len < 4) {
     hist[len] = wid;
@@ -330,6 +332,10 @@ inline int push_ring(uint32_t* hist, int len, uint32_t wid) {
 
 struct Arena {
   std::vector<Node> nodes;
+  // continuation mode: the trailing partial word of the committed
+  // transcript, which prefixes the first word that completes inside this
+  // search so the LM scores the whole word (streaming partials)
+  std::string root_partial;
 
   Arena() {
     nodes.reserve(1 << 14);
@@ -347,6 +353,9 @@ struct Arena {
       id = n.parent;
     }
     std::reverse(w.begin(), w.end());
+    // the walk reached the root without a space: the word began in the
+    // committed text
+    if (id == 0 && !root_partial.empty()) w = root_partial + w;
     return w;
   }
 
@@ -406,6 +415,18 @@ STT_EXPORT void* stt_lm_load(const char* model_path, const char* vocab_path) {
   return load_lm(model_path, vocab_path);
 }
 
+// ARPA -> KenLM PROBING binary writer. Returns 0 on success; err_buf
+// receives a message on failure.
+STT_EXPORT int stt_lm_write_binary(const char* arpa_path, const char* out_path,
+                                   char* err_buf, int err_capacity) {
+  std::string err;
+  int rc = speecht_torch::write_kenlm_binary(arpa_path, out_path, &err);
+  if (rc != 0 && err_buf && err_capacity > 0) {
+    std::snprintf(err_buf, (size_t)err_capacity, "%s", err.c_str());
+  }
+  return rc;
+}
+
 STT_EXPORT int stt_lm_is_binary(const char* path) {
   return speecht_torch::is_kenlm_binary(path) ? 1 : 0;
 }
@@ -459,23 +480,58 @@ STT_EXPORT void stt_lm_score_sentence(void* lm_ptr, const char* text, float* lm_
   }
 }
 
-// CTC prefix beam search over one utterance.
+// CTC prefix beam search over one utterance, or over the continuation of
+// committed context (streaming partials).
 //   log_probs: [T, C] natural-log softmax emissions (C = 29, blank last)
 //   lm: optional LanguageModel* (may be null)
 //   weights: lm_weight (applied to log10 LM scores), word_count_weight,
 //            valid_word_count_weight -- runtime-tunable shallow fusion
+//   context_text: the committed transcript so far (null or empty for a
+//     fresh utterance): its complete words seed the LM history ring and
+//     its trailing partial word prefixes the first word completed here
+//   last_char_id / ended_in_blank: the committed greedy path's collapse
+//     carry -- the raw last emission decides whether the first frame here
+//     can merge as a repeat (CTC stay) or must start a new character
 //   out_ids: caller buffer of capacity out_capacity; returns decoded length
+//     (the characters after the context only: the caller owns the
+//     committed text)
 static int beam_search_impl(
     const float* log_probs, int64_t T, int32_t C, int32_t blank_id,
     int32_t beam_width, void* lm_ptr, float lm_weight,
     float word_count_weight, float valid_word_count_weight,
-    int32_t prune_top_k, int32_t* out_ids, int32_t out_capacity) {
+    int32_t prune_top_k, const char* context_text, int32_t last_char_id,
+    int32_t ended_in_blank, int32_t* out_ids, int32_t out_capacity) {
   auto* lm = (LanguageModel*)lm_ptr;
   Arena arena;
+  if (context_text && context_text[0]) {
+    // split the committed text into complete words (the LM history ring)
+    // and the trailing partial word (prefixes the first completion here)
+    std::string text(context_text);
+    size_t last_space = text.find_last_of(' ');
+    std::string complete =
+        last_space == std::string::npos ? "" : text.substr(0, last_space);
+    arena.root_partial =
+        last_space == std::string::npos ? text : text.substr(last_space + 1);
+    Node& root = arena.nodes[0];
+    std::istringstream ss(complete);
+    std::string w;
+    while (ss >> w) {
+      if (!lm || lm->order == 0) break;
+      uint32_t wid = lm->word_id(w);
+      root.hist_len = (int8_t)push_ring(root.hist, root.hist_len, wid);
+    }
+  }
+  if (last_char_id >= 0) arena.nodes[0].ch = (int8_t)last_char_id;
 
-  // a fresh utterance: all mass on the blank path (log prob 1)
   std::vector<Cand> beam;
-  beam.push_back(Cand{0, 0.0, kNegInf});
+  // a fresh utterance: all mass on the blank path (log prob 1). A
+  // continuation whose committed raw path ended mid-character carries its
+  // mass on the non-blank path instead, so an immediate repeat merges.
+  if (ended_in_blank || last_char_id < 0) {
+    beam.push_back(Cand{0, 0.0, kNegInf});
+  } else {
+    beam.push_back(Cand{0, kNegInf, 0.0});
+  }
 
   std::vector<int> cand_chars;
   cand_chars.reserve(C);
@@ -635,8 +691,23 @@ STT_EXPORT int stt_ctc_beam_search(
     int32_t prune_top_k, int32_t* out_ids, int32_t out_capacity) {
   return beam_search_impl(
       log_probs, T, C, blank_id, beam_width, lm_ptr, lm_weight,
-      word_count_weight, valid_word_count_weight, prune_top_k, out_ids,
-      out_capacity);
+      word_count_weight, valid_word_count_weight, prune_top_k, nullptr,
+      -1, 1, out_ids, out_capacity);
+}
+
+// Continuation-mode beam search: decodes a tail of emissions conditioned
+// on already-committed context (streaming partials: the committed text
+// never changes; only the tail's characters are returned).
+STT_EXPORT int stt_ctc_beam_search_cont(
+    const float* log_probs, int64_t T, int32_t C, int32_t blank_id,
+    int32_t beam_width, void* lm_ptr, float lm_weight,
+    float word_count_weight, float valid_word_count_weight,
+    int32_t prune_top_k, const char* context_text, int32_t last_char_id,
+    int32_t ended_in_blank, int32_t* out_ids, int32_t out_capacity) {
+  return beam_search_impl(
+      log_probs, T, C, blank_id, beam_width, lm_ptr, lm_weight,
+      word_count_weight, valid_word_count_weight, prune_top_k,
+      context_text, last_char_id, ended_in_blank, out_ids, out_capacity);
 }
 
 }  // extern "C"

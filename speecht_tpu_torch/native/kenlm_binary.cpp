@@ -1,10 +1,11 @@
-// KenLM PROBING binary format: the reader.
+// KenLM PROBING binary format: the reader and the writer.
 //
-// The port's own copy of the reader half of the JAX package's
+// The port's own copy of the JAX package's
 // `speecht_tpu/native/kenlm_binary.cpp` (the `KenlmBinaryScorer`,
 // `load_kenlm_binary_scorer`, `is_kenlm_binary` and the raw-table dump the
-// device beam's LM tables are built from, exported as `stt_kenlm_dump_*`),
-// in a namespace of its own; the ARPA -> binary writer is not copied. It
+// device beam's LM tables are built from, exported as `stt_kenlm_dump_*`)
+// and of its ARPA -> binary writer (`write_kenlm_binary`, exported by
+// beam_search.cpp as `stt_lm_write_binary`), in a namespace of its own. It
 // reads the reference's released language-model bundle
 // (`kenlm-model.binary` + `vocabulary`) directly, with no KenLM dependency:
 //
@@ -495,12 +496,217 @@ bool KenlmBinaryScorer::load(const char* path, std::string* err) {
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// writer: ARPA -> PROBING binary
+// ---------------------------------------------------------------------------
+
+struct ArpaEntry {
+  std::vector<uint32_t> ids;
+  float prob;
+  float backoff;
+};
+
+void put_u64(std::vector<char>& buf, uint64_t off, uint64_t v) {
+  std::memcpy(buf.data() + off, &v, 8);
+}
+void put_u32(std::vector<char>& buf, uint64_t off, uint32_t v) {
+  std::memcpy(buf.data() + off, &v, 4);
+}
+void put_f32(std::vector<char>& buf, uint64_t off, float v) {
+  std::memcpy(buf.data() + off, &v, 4);
+}
+
+bool probing_insert(std::vector<char>& buf, uint64_t base, uint64_t buckets,
+                    uint64_t entry_bytes, uint64_t key,
+                    const float* values, int n_values) {
+  if (key == 0) key = 1;  // 0 marks empty slots; remap (prob ~0 of hashes)
+  uint64_t b = key % buckets;
+  for (uint64_t i = 0; i < buckets; ++i) {
+    uint64_t off = base + b * entry_bytes;
+    uint64_t existing;
+    std::memcpy(&existing, buf.data() + off, 8);
+    if (existing == 0) {
+      put_u64(buf, off, key);
+      for (int v = 0; v < n_values; ++v)
+        put_f32(buf, off + 8 + 4ull * v, values[v]);
+      return true;
+    }
+    b = (b + 1) % buckets;
+  }
+  return false;  // table full (cannot happen: buckets > entries)
+}
+
+int write_kenlm_binary_impl(const char* arpa_path, const char* out_path,
+                            std::string* err) {
+  std::vector<uint64_t> counts;
+  std::unordered_map<std::string, uint32_t> vocab;
+  std::vector<std::string> words;  // id order
+  uint32_t next_id = 1;            // 0 reserved for <unk>
+  std::vector<std::vector<ArpaEntry>> grams;
+
+  auto intern = [&](const std::string& w) -> uint32_t {
+    auto it = vocab.find(w);
+    if (it != vocab.end()) return it->second;
+    uint32_t id;
+    if (w == "<unk>") {
+      id = 0;
+    } else {
+      id = next_id++;
+    }
+    vocab.emplace(w, id);
+    if (words.size() <= id) words.resize(id + 1);
+    words[id] = w;
+    return id;
+  };
+  intern("<unk>");  // id 0 always exists
+
+  // shared grammar (lm.h parse_arpa_stream); the order cap matches the
+  // reader's `order > 12` rejection so a converted binary always loads
+  int order = speecht_torch::parse_arpa_stream(
+      arpa_path, 12,
+      [&](int n, uint64_t cnt) {
+        if ((int)counts.size() < n) counts.resize(n, 0);
+        counts[n - 1] = cnt;
+      },
+      [&](int n, float prob, const std::vector<std::string>& ws,
+          float backoff) {
+        if ((int)grams.size() < n) grams.resize(n);
+        ArpaEntry e;
+        e.prob = prob;
+        e.backoff = backoff;
+        e.ids.resize(n);
+        for (int i = 0; i < n; ++i) e.ids[i] = intern(ws[i]);
+        grams[n - 1].push_back(std::move(e));
+      });
+  if (order == -2) {
+    *err = "cannot open ARPA file";
+    return 1;
+  }
+  if (order == -1) {
+    *err = "ARPA order exceeds the supported maximum (12)";
+    return 1;
+  }
+  if (order == 0) {
+    *err = "no n-grams parsed from ARPA";
+    return 1;
+  }
+  grams.resize(order);
+  counts.resize(order);
+  for (int n = 0; n < order; ++n) counts[n] = grams[n].size();
+
+  // ---- header ----
+  // Sanity: magic + version, canaries (layout mirrors lm/binary_format.cc)
+  std::string magic = std::string(kMagicPrefix) + "5\n";
+  uint64_t magic_field = align8(magic.size() + 2);  // two trailing nuls
+  uint64_t f_zero = magic_field;
+  uint64_t f_words = f_zero + 12;
+  uint64_t f_u64 = align8(f_words + 8);
+  uint64_t sanity_size = align8(f_u64 + 8);
+  uint64_t fixed_off = sanity_size;
+  uint64_t counts_off = fixed_off + 20;
+  uint64_t header_end = align8(counts_off + 8ull * order);
+
+  // vocabulary entries: every unigram surface form (incl. <unk>)
+  uint64_t vocab_entries = words.size();
+  uint64_t unigram_slots = counts[0] + 1;
+  float multiplier = kDefaultMultiplier;
+  Layout lay = compute_layout(header_end, order, counts, multiplier,
+                              vocab_entries, unigram_slots);
+
+  uint64_t strings_bytes = 0;
+  for (const auto& w : words) strings_bytes += w.size() + 1;
+  std::vector<char> buf(lay.strings + strings_bytes, 0);
+
+  std::memcpy(buf.data(), magic.data(), magic.size());
+  put_f32(buf, f_zero, 0.0f);
+  put_f32(buf, f_zero + 4, 1.0f);
+  put_f32(buf, f_zero + 8, -0.5f);
+  put_u32(buf, f_words, 1u);
+  put_u32(buf, f_words + 4, 0xFFFFFFFFu);
+  put_u64(buf, f_u64, 1ull);
+  buf[fixed_off] = (char)order;
+  put_f32(buf, fixed_off + 4, multiplier);
+  put_u32(buf, fixed_off + 8, kModelTypeProbing);
+  buf[fixed_off + 12] = 1;  // has_vocabulary
+  put_u32(buf, fixed_off + 16, 0u);  // search version
+  for (int n = 0; n < order; ++n)
+    put_u64(buf, counts_off + 8ull * n, counts[n]);
+
+  // vocabulary header {version, bound} + hash table
+  put_u32(buf, lay.vocab_header, 1u);
+  put_u32(buf, lay.vocab_header + 4, (uint32_t)words.size());
+  for (uint32_t id = 0; id < words.size(); ++id) {
+    float value;
+    std::memcpy(&value, &id, 4);
+    if (!probing_insert(buf, lay.vocab_table, lay.vocab_buckets,
+                        kVocabEntryBytes, word_hash(words[id]), &value, 1)) {
+      *err = "vocab table overflow";
+      return 1;
+    }
+  }
+
+  // unigrams: direct-indexed array. Slot 0 (<unk>) gets the same -10
+  // floor ArpaScorer uses BEFORE the entries are written: an ARPA built
+  // without a <unk> unigram must not leave log10 P(<unk>) = 0.0 (i.e.
+  // probability 1 for every OOV word, which would make garbage letter
+  // sequences outscore real words in the beam). A real <unk> entry in
+  // grams[0] overwrites the floor.
+  put_f32(buf, lay.unigram, -10.0f);
+  put_f32(buf, lay.unigram + 4, 0.0f);
+  for (const auto& e : grams[0]) {
+    uint64_t off = lay.unigram + e.ids[0] * kProbBackoffBytes;
+    put_f32(buf, off, e.prob);
+    put_f32(buf, off + 4, e.backoff);
+  }
+  // middle + longest
+  for (int n = 2; n <= order; ++n) {
+    for (const auto& e : grams[n - 1]) {
+      uint64_t key = ngram_hash(e.ids.data(), n);
+      if (n == order) {
+        if (!probing_insert(buf, lay.longest, lay.longest_buckets,
+                            kLongestEntryBytes, key, &e.prob, 1)) {
+          *err = "longest table overflow";
+          return 1;
+        }
+      } else {
+        float pv[2] = {e.prob, e.backoff};
+        if (!probing_insert(buf, lay.middle[n - 2],
+                            lay.middle_buckets[n - 2], kMiddleEntryBytes,
+                            key, pv, 2)) {
+          *err = "middle table overflow";
+          return 1;
+        }
+      }
+    }
+  }
+
+  // word strings in id order
+  uint64_t pos = lay.strings;
+  for (const auto& w : words) {
+    std::memcpy(buf.data() + pos, w.data(), w.size());
+    pos += w.size() + 1;  // keep the nul
+  }
+
+  std::ofstream out(out_path, std::ios::binary | std::ios::trunc);
+  if (!out.good()) {
+    *err = "cannot open output file";
+    return 1;
+  }
+  out.write(buf.data(), (std::streamsize)buf.size());
+  return out.good() ? 0 : 1;
+}
+
 }  // namespace
 
 NGramScorer* load_kenlm_binary_scorer(const char* path, std::string* err) {
   auto scorer = std::make_unique<KenlmBinaryScorer>();
   if (!scorer->load(path, err)) return nullptr;
   return scorer.release();
+}
+
+int write_kenlm_binary(const char* arpa_path, const char* out_path,
+                       std::string* err) {
+  return write_kenlm_binary_impl(arpa_path, out_path, err);
 }
 
 bool is_kenlm_binary(const char* path) {

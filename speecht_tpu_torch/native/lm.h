@@ -39,8 +39,14 @@ NGramScorer* load_kenlm_binary_scorer(const char* path, std::string* err);
 // True when the file starts with the KenLM binary magic.
 bool is_kenlm_binary(const char* path);
 
-// Streaming ARPA parser of ArpaScorer (beam_search.cpp): the counts of
-// the \data\ section, the \N-grams: sections and their entries.
+// ARPA -> KenLM PROBING binary writer (0 on success).
+int write_kenlm_binary(const char* arpa_path, const char* out_path,
+                       std::string* err);
+
+// Streaming ARPA parser shared by ArpaScorer (beam_search.cpp) and the
+// binary writer (kenlm_binary.cpp): the counts of the \data\ section, the
+// \N-grams: sections and their entries, in one implementation so the two
+// cannot drift.
 //
 //   on_count(int order, uint64_t count)  — per "ngram N=count" line
 //   on_entry(int order, float prob, const std::vector<std::string>&

@@ -100,11 +100,21 @@ class BeamSearchDecoder:
     (``evaluate --from-audio``): the device front end for that feature
     type (audio at ``wire_sr``) runs ahead of the model.
 
-    ``lm_config.device_beam`` runs the search on the model's device. The
-    LM tables must fit ``device_lm_hbm_gb``: an LM whose file already
-    looks too large (2.6x a binary's size, 1.2x an ARPA's), or whose
-    tables are, falls back to the host beam with a printed message.
+    ``lm_config.device_beam`` runs the search on the model's device. A
+    beam width the kernel cannot take (``beam_device_cuda.shape_limits``:
+    more than 1024, too many candidates or too much shared memory), decided
+    from the flags before anything is loaded, falls back to the host beam
+    with a printed message, and so does an LM whose tables do not fit
+    ``device_lm_hbm_gb`` (one whose file already looks too large, 2.6x a
+    binary's size or 1.2x an ARPA's, or whose tables are). Under
+    ``--rescore N`` the width fall-back is the host beam without the
+    rescoring (the rescoring puts no LM on the device, so the budget does
+    not apply to it).
     """
+
+    # the emission pruning of every search: only a frame's top-k chars
+    # spawn extensions (native.ctc_beam_search's and JAX's default)
+    prune_top_k = 8
 
     def __init__(self, model, lm_config: LanguageModelConfig,
                  num_threads: int | None = None,
@@ -137,9 +147,25 @@ class BeamSearchDecoder:
     def _make_device_beam(self, device) -> None:
         """The device search; with ``--rescore`` also the host LM. Without
         room for the LM tables it prints why and clears ``device_beam``."""
-        from speecht_tpu_torch.ops import beam_device
+        from speecht_tpu_torch.ops import beam_device, beam_device_cuda
 
         cfg = self.lm_config
+        # the kernel's limits, from the flags alone: the LM's history
+        # length is known only once it is loaded, so take the longest (a
+        # width that fits it fits every shorter one)
+        C = vocabulary.NUM_CLASSES
+        K = self.prune_top_k if 0 < self.prune_top_k < C else C
+        H = beam_device_cuda.MAX_HIST if cfg.language_model and not self.rescore_n else 1
+        limits = beam_device_cuda.shape_limits(cfg.beam_width, K, H)
+        if limits:
+            dropped = f" without --rescore {self.rescore_n}" if self.rescore_n else ""
+            print(
+                f"device beam kernel: {'; '.join(limits)}; falling back to "
+                f"the host beam{dropped}"
+            )
+            self.device_beam = False
+            self.rescore_n = 0
+            return
         if self.rescore_n:
             # two stages: a pure-acoustic device beam keeps the n-best,
             # the host LM rescores them (no device tables needed)
@@ -147,7 +173,8 @@ class BeamSearchDecoder:
                 model_path, vocab = find_lm_files(cfg.language_model)
                 self.lm = native.NGramLM(model_path, vocab)
             self._beam_fn = beam_device.make_device_beam_search(
-                cfg.beam_width, lm=None, n_best=self.rescore_n
+                cfg.beam_width, lm=None, prune_top_k=self.prune_top_k,
+                n_best=self.rescore_n,
             )
             return
         device_lm = None
@@ -185,7 +212,7 @@ class BeamSearchDecoder:
                 self.device_beam = False
                 return
         self._beam_fn = beam_device.make_device_beam_search(
-            cfg.beam_width, lm=device_lm
+            cfg.beam_width, lm=device_lm, prune_top_k=self.prune_top_k
         )
 
     def close(self) -> None:
@@ -274,6 +301,7 @@ class BeamSearchDecoder:
                 word_count_weight=wc_w,
                 valid_word_count_weight=vwc_w,
                 blank_id=vocabulary.BLANK_ID,
+                prune_top_k=self.prune_top_k,
             )
 
         for i, ids in enumerate(self._pool.map(one, range(B))):

@@ -7,6 +7,14 @@ row runs the whole frame loop, so a batch is one launch. Its plain version
 is ``ops/beam_device.py::plain_beam_search``; ``make_device_beam_search``
 takes that only for log-probs on the CPU and calls :data:`BEAM_DEVICE` for
 log-probs on a CUDA device, which launches the kernel or raises.
+
+The library's limits are held here too, as Python constants equal to
+``csrc/beam_device.cu``'s (``kMaxW``, the 65535-candidate cap,
+``kMaxSmem``) with a twin of ``beam_device_smem_bytes``, so that
+``ops/beam.py`` decides from the flags alone, before it loads an LM or
+builds the library, whether ``--device-beam`` can take a width
+(:func:`shape_limits`). The launch-time :meth:`BeamDeviceKernel.check_shape`
+asks the library itself.
 """
 
 from __future__ import annotations
@@ -20,6 +28,47 @@ from speecht_tpu_torch.ops import cuda_build
 from speecht_tpu_torch.ops.beam_device import BeamSpec, fusion_weights
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# csrc/beam_device.cu:65-66: kMaxW, the candidate index's int16 range,
+# kMaxSmem, kMaxH, kMaxC
+MAX_WIDTH = 1024
+MAX_CANDIDATES = 0xFFFF
+MAX_SMEM = 232448
+MAX_HIST = 5
+MAX_CLASSES = 32
+
+
+def smem_bytes(W: int, K: int, H: int) -> int:
+    """``beam_device_smem_bytes`` in Python: the kernel's ``Layout``, each
+    region rounded up to 16 bytes."""
+    P2 = 1 << max(0, ((K + 1) * W - 1).bit_length())  # next_pow2((K+1)W)
+    regions = (
+        MAX_CLASSES * 4, MAX_CLASSES * 4, MAX_CLASSES * 4,  # frame, top-K
+        6 * W * 4, 6 * W * 4, 5 * W * 4,  # the published beam state
+        W * max(H, 1) * 4, W,  # word history, has-word flags
+        W * K * 2,  # the merge map
+        P2 * 4, P2 * 2,  # sort keys, indices
+    )
+    total = 0
+    for n in regions:
+        total = (total + n + 15) & ~15
+    return total
+
+
+def shape_limits(W: int, K: int, H: int) -> list[str]:
+    """The kernel's limits that beam width W, top-K K and history H
+    pass, each as a phrase; empty when the kernel takes the shape."""
+    limits = []
+    if W > MAX_WIDTH:
+        limits.append(f"beam width {W} is more than the kernel's {MAX_WIDTH}")
+    if (K + 1) * W > MAX_CANDIDATES:
+        limits.append(f"(top-k {K} + 1) x beam width {W} candidates is more "
+                      f"than {MAX_CANDIDATES}")
+    smem = smem_bytes(W, K, H)
+    if smem > MAX_SMEM:
+        limits.append(f"beam width {W} at top-k {K} needs {smem} bytes of "
+                      f"shared memory per block, more than the card's {MAX_SMEM}")
+    return limits
 
 
 class BeamDeviceKernel(cuda_build.KernelLibrary):

@@ -16,8 +16,9 @@ so a batch resample is a hop-``M`` framing followed by one
 see :func:`float32_matmuls`: the host accumulates in float64, and reduced
 precision passes corrupt the sinc tails.
 
-``StreamResampler`` (the chunked resampler of ``record --streaming``) is
-not ported yet.
+:class:`StreamResampler` is the chunked host resampler of ``record
+--streaming``: chunks in, exactly the samples ``native.resample`` gives
+the whole signal out.
 """
 
 from __future__ import annotations
@@ -213,3 +214,71 @@ def batch_resample(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor
     frames = padded.unfold(1, P, M)[:, :nq]  # [B, nq, P]
     y = frames.reshape(B * nq, P) @ _weights(sr_in, sr_out, audio.device)
     return y.reshape(B, nq * L)
+
+
+class StreamResampler:
+    """Streaming chunked resampler, sample-exact against the whole signal.
+
+    Audio arrives in chunks of any size at ``sr_in`` and leaves at
+    ``sr_out`` as EXACTLY the samples ``native.resample`` emits for the
+    whole signal, by alignment and context:
+
+    - the buffer is only ever trimmed to an input index that is a multiple
+      of the polyphase hop ``M``, so the buffer's output grid is the
+      global one (output ``j`` maps to input position ``j*M/L``; with
+      ``s0 = c*M`` its local index is ``j - c*L`` and its phase ``j mod L``
+      is kept);
+    - ``guard`` input samples (more than the sinc kernel's half-width
+      64/scale) of lookahead are held back until more audio arrives, and
+      2x guard of emitted context stays behind the frontier, so every
+      emitted sample had the kernel's full support on both sides.
+
+    ``process(chunk)`` returns the newly available output samples (maybe
+    none); ``flush()`` emits the rest, the right edge included.
+    """
+
+    def __init__(self, sr_in: int, sr_out: int):
+        g = math.gcd(sr_in, sr_out)
+        self.sr_in, self.sr_out = sr_in, sr_out
+        self.L, self.M = sr_out // g, sr_in // g
+        scale = min(1.0, sr_out / sr_in)
+        self.guard = int(math.ceil(_NUM_ZEROS / scale)) + 8
+        self._buf = np.zeros(0, np.float32)
+        self._s0 = 0  # absolute input index of _buf[0]; a multiple of M
+        self._emitted = 0  # output samples emitted so far
+        self._flushed = False
+
+    def _emit(self, out_hi: int) -> np.ndarray:
+        from speecht_tpu_torch import native
+
+        if out_hi <= self._emitted:
+            return np.zeros(0, np.float32)
+        y = native.resample(self._buf, self.sr_in, self.sr_out)
+        base = self._s0 * self.L // self.M  # exact: s0 is a multiple of M
+        out = y[self._emitted - base : out_hi - base]
+        self._emitted = out_hi
+        # keep 2x guard of context behind the next output's input
+        # position, rounded down to a multiple of M (grid alignment)
+        keep_from = (self._emitted * self.M) // self.L - 2 * self.guard
+        keep_from -= keep_from % self.M
+        if keep_from > self._s0:
+            self._buf = self._buf[keep_from - self._s0 :]
+            self._s0 = keep_from
+        return out
+
+    def process(self, chunk: np.ndarray) -> np.ndarray:
+        if self._flushed:
+            raise RuntimeError("StreamResampler already flushed")
+        chunk = np.asarray(chunk, dtype=np.float32).ravel()
+        if len(chunk):
+            self._buf = np.concatenate([self._buf, chunk])
+        s1 = self._s0 + len(self._buf)
+        # outputs whose input position has the kernel's full right support
+        out_hi = max(0, ((s1 - self.guard) * self.L) // self.M)
+        return self._emit(out_hi)
+
+    def flush(self) -> np.ndarray:
+        """The remaining output, to the whole signal's output length."""
+        self._flushed = True
+        s1 = self._s0 + len(self._buf)
+        return self._emit(int(out_count(s1, self.sr_in, self.sr_out)))

@@ -3,10 +3,12 @@
 Counterpart of ``speecht_tpu/train/step.py`` (``make_loss_fn``,
 ``_apply_grads``, ``make_train_step``, ``init_metrics_acc``,
 ``init_grad_accum``, ``make_train_step_acc``, ``make_eval_step``,
-``decay_learning_rate``) and of ``training.py::perplexity``.
+``make_forward_step``, ``decay_learning_rate``) and of
+``training.py::perplexity``.
 
-The JAX eval step takes ``(params, batch)``; here the module holds its
-parameters, so it takes the batch alone and runs under
+The JAX eval and forward steps take ``(params, batch)`` and
+``(params, features)``; here the module holds its parameters, so they
+take the batch or the features alone and run under
 ``torch.inference_mode()``. The train steps take ``(state, ...)`` as in
 JAX; ``state.params`` are the model's own parameters, which the step
 updates in place. Nothing in a step reads a value back to the host: loss
@@ -71,6 +73,17 @@ def make_eval_step(model: Wav2Letter) -> Callable:
         return avg_loss, decoded, dec_lengths
 
     return eval_step
+
+
+def make_forward_step(model: Wav2Letter) -> Callable:
+    """Returns features [B, T, F] -> logits [B, T//2, C] float32 (the
+    model's forward alone: streaming ``record`` and the serving export)."""
+
+    @torch.inference_mode()
+    def forward(features):
+        return model(features)
+
+    return forward
 
 
 def make_audio_loss_fn(model: Wav2Letter, front_end: Callable) -> Callable:

@@ -315,3 +315,79 @@ def test_no_language_model_decodes_without_lm(models):
         assert decoded.shape == (3, 32) and lengths[2] == 0
     finally:
         beam.close()
+
+
+@pytest.mark.parametrize("width,rescore", [(1024, 0), (1025, 0), (1025, 4)])
+def test_device_beam_width_follows_the_kernel_limits(models, lm_dir, tmp_path,
+                                                     monkeypatch, capsys, width,
+                                                     rescore):
+    """The decoder decides from the flags, before it loads the LM, whether
+    the kernel takes the width: 1024 keeps ``--device-beam``; 1025 prints
+    the fall-back and decodes on the host beam (under ``--rescore`` without
+    the rescoring), as a host-beam decoder of that width does."""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    _jmodel, _params, model = models
+    cfg = dict(device_beam=True, rescore_n=rescore, beam_width=width)
+    ours = BeamSearchDecoder(
+        model, LanguageModelConfig(language_model=str(lm_dir),
+                                   blank_threshold=0.9, **cfg),
+        num_threads=2,
+    )
+    out = capsys.readouterr().out
+    try:
+        if width <= 1024:
+            assert ours.device_beam and "falling back" not in out
+            return
+        assert not ours.device_beam and ours.rescore_n == 0
+        assert ours.lm is not None
+        assert ("device beam kernel: beam width 1025 is more than the "
+                "kernel's 1024; falling back to the host beam") in out
+        assert ("without --rescore 4" in out) == bool(rescore)
+        host = BeamSearchDecoder(
+            model, LanguageModelConfig(language_model=str(lm_dir),
+                                       blank_threshold=0.9, beam_width=width),
+            num_threads=2,
+        )
+        try:
+            batch = to_device(_batch(0), torch.device("cpu"), "float32")
+            got, want = ours.eval_step(batch), host.eval_step(batch)
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_array_equal(g, w)
+        finally:
+            host.close()
+    finally:
+        ours.close()
+
+
+def test_device_beam_candidate_limit_falls_back(models, lm_dir, monkeypatch,
+                                                capsys):
+    """Every char a frame (top-k 0: K = 29) at width 2185 is 65550
+    candidates, past the kernel's int16 index: the decoder names that limit
+    and takes the host beam."""
+    _jmodel, _params, model = models
+    monkeypatch.setattr(BeamSearchDecoder, "prune_top_k", 0)
+    ours = BeamSearchDecoder(
+        model, LanguageModelConfig(language_model=str(lm_dir), beam_width=2185,
+                                   device_beam=True),
+        num_threads=2,
+    )
+    ours.close()
+    out = capsys.readouterr().out
+    assert not ours.device_beam
+    assert "(top-k 29 + 1) x beam width 2185 candidates is more than 65535" in out
+    assert "falling back to the host beam" in out
+
+
+@pytest.mark.parametrize(
+    "W,K,H,limits",
+    [(1024, 8, 5, []), (1024, 8, 1, []), (1, 1, 0, []), (1025, 8, 5, ["width"]),
+     (1024, 64, 1, ["candidates", "shared memory"]), (1024, 29, 1, ["shared memory"]),
+     (512, 29, 5, [])],
+)
+def test_shape_limits(W, K, H, limits):
+    from speecht_tpu_torch.ops import beam_device_cuda
+
+    found = beam_device_cuda.shape_limits(W, K, H)
+    assert len(found) == len(limits)
+    for phrase, word in zip(found, limits):
+        assert word in phrase

@@ -152,3 +152,53 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda_device, lm_dirs, monkeyp
     assert beam_device_cuda.BEAM_DEVICE.launches == before + 1
     assert ids.device.type == "cuda" and tuple(ids.shape) == (2, 30)
     assert int(lens.max()) > 0
+
+
+@pytest.mark.cuda
+def test_python_limits_equal_the_library(cuda_device):
+    """The constants and the shared-memory twin that ``ops/beam.py``
+    decides with, before the library is built, equal the library's."""
+    lib = beam_device_cuda.BEAM_DEVICE.lib
+    assert lib.beam_device_max_width() == beam_device_cuda.MAX_WIDTH
+    assert lib.beam_device_max_smem() == beam_device_cuda.MAX_SMEM
+    for W in (1, 2, 31, 32, 33, 100, 255, 256, 257, 1000, 1024):
+        for K in (1, 2, 8, 13, 29, 32):
+            for H in (0, 1, 3, 5):
+                assert lib.beam_device_smem_bytes(W, K, H) == \
+                    beam_device_cuda.smem_bytes(W, K, H), (W, K, H)
+
+
+@pytest.mark.cuda
+def test_evaluate_device_beam_width_1025_completes(cuda_device, lm_dirs, tmp_path,
+                                                   monkeypatch, capsys):
+    """``evaluate --language-model --device-beam --beam-width 1025`` on the
+    card prints the fall-back before the first batch and decodes every
+    utterance on the host beam."""
+    from speecht_tpu_torch.cli import CLI
+    from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
+    from speecht_tpu_torch.weights import params_to_jax
+
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path / "lm_cache"))
+    rng = np.random.RandomState(0)
+    d = tmp_path / "data" / "preprocessed-power" / "test"
+    d.mkdir(parents=True)
+    for i in range(4):
+        np.savez(d / f"utt{i}",
+                 audio_fragments=rng.randn(rng.randint(60, 200), 128).astype(np.float32),
+                 transcript=rng.randint(0, 28, size=8).astype(np.int64))
+    model = Wav2Letter(Wav2LetterConfig(base_channels=16, wide_channels=32))
+    weights = tmp_path / "weights"
+    for layer, leaves in params_to_jax(model.state_dict()).items():
+        (weights / layer).mkdir(parents=True)
+        for leaf, value in leaves.items():
+            np.save(weights / layer / f"{leaf}.npy", value)
+    stats = CLI([
+        "evaluate", "--test", "--no-save", "--data-dir", str(tmp_path / "data"),
+        "--train-dir", str(tmp_path / "train"), "--log-dir", str(tmp_path / "log"),
+        "--batch-size", "4", "--reference-weights", str(weights),
+        "--base-channels", "16", "--wide-channels", "32",
+        "--language-model", lm_dirs["order3"], "--beam-width", "1025", "--device-beam",
+    ]).run()
+    out = capsys.readouterr().out
+    assert out.index("falling back to the host beam") < out.index("Begin evaluation")
+    assert stats.decodings_counter == 4

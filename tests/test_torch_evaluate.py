@@ -194,6 +194,31 @@ def test_device_lm_budget_falls_back_to_the_host_beam(workdir, capsys, tmp_path,
         )
 
 
+def test_device_beam_past_the_kernel_width_falls_back(workdir, capsys, tmp_path,
+                                                     monkeypatch):
+    """``--device-beam --beam-width 1025``: the message before the first
+    batch, then the host beam's decode of the whole split (the width used to
+    raise at the first batch)."""
+    monkeypatch.setenv("SPEECHT_DEVICE_LM_CACHE", str(tmp_path))
+    lm_dir = workdir / "lm"
+    lm_dir.mkdir(exist_ok=True)
+    (lm_dir / "model.arpa").write_text(ARPA)
+    (lm_dir / "vocabulary").write_text("the\ncat\ndog\nsat\n")
+    flags = ["--device", "cpu", "--language-model", str(lm_dir), "--beam-width", "1025"]
+    host = CLI(_argv(workdir, *flags)).run()
+    host_pairs = _parse(capsys.readouterr().out)[0]
+    stats = CLI(_argv(workdir, *flags, "--device-beam")).run()
+    out = capsys.readouterr().out
+    message = out.index("beam width 1025 is more than the kernel's 1024; "
+                        "falling back to the host beam")
+    assert message < out.index("Begin evaluation")
+    assert _parse(out)[0] == host_pairs
+    assert stats.decodings_counter == 7
+    assert stats.global_letter_error_rate == pytest.approx(
+        host.global_letter_error_rate
+    )
+
+
 def test_evaluate_writes_eval_loss_summary(workdir, capsys):
     argv = [a for a in _argv(workdir, "--device", "cpu") if a != "--no-save"]
     CLI(argv + ["--run-name", "summary"]).run()

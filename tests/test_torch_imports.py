@@ -140,6 +140,24 @@ def test_every_module_of_the_audio_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_serving_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.serving",
+        "speecht_tpu_torch.exporting",
+        "speecht_tpu_torch.recording",
+        "speecht_tpu_torch.record_utils",
+        "speecht_tpu_torch.ops.streaming",
+        "speecht_tpu_torch.ops.resample",
+        "speecht_tpu_torch.ops.beam_device_cuda",
+        "speecht_tpu_torch.data.pipeline",
+        "speecht_tpu_torch.train.step",
+        "speecht_tpu_torch.native",
+        "speecht_tpu_torch.cli",
+    ):
+        assert m in mods
+
+
 def _native_sources():
     native = os.path.join(PACKAGE, "native")
     return sorted(

@@ -220,6 +220,39 @@ def test_train_flags_and_defaults_match_jax():
     assert ours == theirs
 
 
+@pytest.mark.parametrize("command", ["record", "export"])
+def test_record_and_export_flags_and_defaults_match_jax(command):
+    """Every flag of JAX's ``record`` and ``export`` with its default; the
+    one default that differs is ``--export-platforms`` (torch devices,
+    ``cuda,cpu``, against JAX's ``tpu,cpu``). The port adds ``--device``
+    and, on ``record``, ``--reference-weights`` (as on ``evaluate``)."""
+    from speecht_tpu.cli import CLI as JaxCLI
+
+    ours = vars(CLI([command]).parsed)
+    theirs = vars(JaxCLI([command]).parsed)
+    assert ours.pop("device") == "cuda"
+    if command == "record":
+        assert ours.pop("reference_weights") is None
+        assert vars(ours.pop("lm")) == vars(theirs.pop("lm"))
+    else:
+        assert (ours.pop("export_platforms"), theirs.pop("export_platforms")) == (
+            "cuda,cpu", "tpu,cpu")
+    assert ours == theirs
+    argv = {"record": ["record", "--input-size", "39", "--streaming", "--feature-rate",
+                       "16000", "--audio-source", "a.flac", "b.flac", "--language-model",
+                       "lm", "--beam-width", "7", "--device-beam", "--rescore", "2"],
+            "export": ["export", "--weights", "w", "--input-size", "39", "--stablehlo",
+                       "s", "--export-batch-size", "4", "--export-frames", "64",
+                       "--export-platforms", "cpu", "--from-audio", "--wire-sr", "16000"]}
+    ours = vars(CLI(argv[command]).parsed)
+    theirs = vars(JaxCLI(argv[command]).parsed)
+    ours.pop("device"), ours.pop("reference_weights", None)
+    if command == "record":
+        assert vars(ours.pop("lm")) == vars(theirs.pop("lm"))
+    assert ours == theirs
+    assert ours["run_type"] == ("record" if command == "record" else "other")
+
+
 def _loop_harness(tmp_path, losses, stop_after=None, signals_in_step=0):
     """Runs ``Training._train_loop`` on a stub step. At call ``stop_after``
     the step asks for a stop: by the flag, or by delivering
