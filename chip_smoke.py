@@ -161,6 +161,28 @@ drives the port's main path through its normal entry point, and fails
    offline transcript; ms a recording, ms a chunk and the real-time
    factor, and one recording's resample, host features, eval step and
    decode, each alone.
+3j. ``parallel/`` on two ranks sharing the card: ``torchrun --standalone
+   --nproc-per-node 2 chip_smoke.py --rank-worker SPEC`` with
+   ``SPEECHT_SHARE_CARD=1`` (gloo, collectives staged through host
+   memory; each rank prints its backend), on the phase-3 corpus (its 256
+   test utterances as the train and test splits) and weights at full
+   width, global B=64, the 1024-frame bucket: ``train --data-parallel
+   2``, ``--model-parallel 2`` and ``--seq-parallel 2`` (4 steps each from
+   a step-0 port checkpoint), then ``evaluate --data-parallel 2`` and
+   ``--seq-parallel 2`` (4 batches, the phase-3 weights), each rank
+   setting the launch counts to 0 just before each run and reading them
+   just after (``ctc_alpha`` and in train ``ctc_beta`` on every rank);
+   then one process runs ``train`` and ``evaluate`` on the same rows
+   (the cache read in the ranks' shared order): each step's loss and the
+   parameters after 4 steps against it (``PARALLEL_LOSS_RTOL``,
+   ``PARALLEL_UPDATE_RTOL``), the decoded tokens (phase 4's share on the
+   DP grid; on the SP grid, whose forward rounds elsewhere, the share is
+   reported and the SP logits of one batch are held to the dense ones,
+   every argmax flip a near tie, ``PARALLEL_LOGIT_RTOL``) and the global
+   statistics (within the decodes' own edit distance), and a
+   one-process ``evaluate`` restores the DP run's checkpoint; ms/step and
+   ms/batch a path, and each collective's ms at the paths' shapes
+   (gloo's host-staged times, not NCCL's).
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
@@ -189,7 +211,9 @@ drives the port's main path through its normal entry point, and fails
 5. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
-Without a CUDA device it exits with code 2 before doing anything.
+Without a CUDA device it exits with code 2 before doing anything. With
+``--rank-worker SPEC`` it is one rank of phase 3j (started by the phase
+itself through ``torchrun``), and prints no result line.
 """
 
 from __future__ import annotations
@@ -1766,6 +1790,28 @@ SEARCH_GENERATIONS = 4
 # an error relative to the logits, and log-probs of unlikely classes
 # reach -50 on these weights
 BEAM_LOGP_RTOL, BEAM_LOGP_ATOL = 1e-4, 1e-4
+# phase 3j: two ranks against one process on the same rows, bf16 compute
+# (the default) on both sides: the convs sum another split of the batch
+# (DP), of the wide layers' channels (TP: bf16 partial sums reduced in
+# float32) or of time (SP: VALID convs on halo'd slabs), a few bf16
+# roundings (2^-8 relative each) apart. A step's loss averages 64 rows:
+# 5e-3 relative. After 4 steps the parameters' movement from the start
+# (Adam with eps 1e-3 moves each by about lr g / (|g| + 1e-3), so a small
+# gradient difference moves it a little) agrees to 5% of its norm.
+# Decodes: phase 4's share of equal tokens, and each global edit-distance
+# sum within the summed edit distance between the two decodes of a row.
+PARALLEL_LOSS_RTOL = 5e-3
+PARALLEL_UPDATE_RTOL = 5e-2
+PARALLEL_MIN_TOKEN_SHARE = 0.99
+PARALLEL_STEPS = 4
+# SP's forward is another computation (VALID convs on halo'd slabs, so
+# cuDNN picks other algorithms and bf16 rounds elsewhere): its logits on
+# one batch must lie within 2% of the batch's largest |logit| of the dense
+# forward's (a few bf16 spacings, 2^-8 relative, at the top of the range),
+# and every frame whose argmax differs must be a near tie, its dense top-2
+# margin within twice that largest difference; the share of equal tokens
+# is reported, not checked (a flip early in a row shifts the rest of it)
+PARALLEL_LOGIT_RTOL = 2e-2
 
 
 def write_lm(root, seed=0):
@@ -2946,6 +2992,435 @@ def record_path(work, weights, lm_dir, audio_dir, audio_cache, kernels, card):
     return runs
 
 
+# -- phase 3j: parallel/, two ranks sharing the card ---------------------------
+
+# (name, command, grid flags) of the paths two ranks run, in this order
+PARALLEL_PATHS = (
+    ("train --data-parallel 2", "train", ["--data-parallel", "2"]),
+    ("train --model-parallel 2", "train", ["--model-parallel", "2"]),
+    ("train --seq-parallel 2", "train", ["--seq-parallel", "2"]),
+    ("evaluate --data-parallel 2", "evaluate", ["--data-parallel", "2"]),
+    ("evaluate --seq-parallel 2", "evaluate", ["--seq-parallel", "2"]),
+)
+PARALLEL_RUNS = {"train --data-parallel 2": "dp", "train --model-parallel 2": "tp",
+                 "train --seq-parallel 2": "sp"}
+PARALLEL_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def seeded_reader():
+    """One process reads the cache in the order the ranks share (seed 0),
+    so that its step k holds the rows of the ranks' step k together."""
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    load = SpeechCorpusReader.load_samples
+
+    def seeded(self, *args, seed=None, **kwargs):
+        return load(self, *args, seed=0 if seed is None else seed, **kwargs)
+
+    SpeechCorpusReader.load_samples = seeded
+    try:
+        yield
+    finally:
+        SpeechCorpusReader.load_samples = load
+
+
+@contextlib.contextmanager
+def step_losses():
+    """Each train step's host time and loss: the growth of the metrics'
+    loss sum, read back after the step (a sync a step)."""
+    from speecht_tpu_torch.train import step as tstep
+
+    rec = {"marks": [], "losses": []}
+    make = tstep.make_train_step_acc
+
+    def recorded_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+        last = [0.0]
+
+        def recorded(*a):
+            rec["marks"].append(time.perf_counter())
+            out = step(*a)
+            total = out[-1]["loss_sum"].item()
+            rec["losses"].append(total - last[0])
+            last[0] = total
+            return out
+
+        return recorded
+
+    tstep.make_train_step_acc = recorded_make
+    try:
+        yield rec
+    finally:
+        tstep.make_train_step_acc = make
+
+
+@contextlib.contextmanager
+def eval_rows():
+    """Every row evaluate tracks, as {expected text: decoded ids}, and the
+    host times of each batch's tracking (``batch_marks``)."""
+    from speecht_tpu_torch import evaluation, vocabulary
+
+    rec = {"rows": {}, "marks": []}
+    track = evaluation.Evaluation._track_batch
+
+    def recorded(stats, batch, decoded, dec_lengths, verbose=False):
+        rec["marks"].append(time.perf_counter())
+        for i in range(decoded.shape[0]):
+            if batch.seq_lengths[i]:
+                expected = vocabulary.ids_to_sentence(
+                    batch.labels[i, : batch.label_lengths[i]])
+                rec["rows"][expected] = [int(x) for x in decoded[i, : dec_lengths[i]]]
+        return track(stats, batch, decoded, dec_lengths, verbose)
+
+    evaluation.Evaluation._track_batch = staticmethod(recorded)
+    try:
+        yield rec
+    finally:
+        evaluation.Evaluation._track_batch = staticmethod(track)
+
+
+def stats_fields(stats):
+    return {"utterances": stats.decodings_counter,
+            "sum_led": stats.sum_letter_edit_distance,
+            "sum_wed": stats.sum_word_edit_distance,
+            "ler": stats.global_letter_error_rate, "wer": stats.global_word_error_rate}
+
+
+def collective_times(n_params, reps=5):
+    """ms of each collective the paths run, at their shapes, on this card
+    (CUDA synchronised around each call; host clock)."""
+    import torch.distributed as dist
+
+    from speecht_tpu_torch.parallel import comm
+
+    world, rank = dist.group.WORLD, dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grads = torch.ones(n_params, device=dev)
+    row_out = torch.ones(MAIN_BATCH, 2000, 512, device=dev)
+    col_in = torch.ones(MAIN_BATCH, 250, 512, device=dev)
+    logits = torch.ones(MAIN_BATCH, 256, 29, device=dev)
+    slab = torch.ones(MAIN_BATCH, 128, 512, dtype=torch.bfloat16, device=dev)
+    prev, nxt = (None, 1) if rank == 0 else (0, None)
+    B, C, T = slab.shape
+    calls = {
+        f"gradient all-reduce, float32 [{n_params}] (DP; SP over both ranks)":
+            lambda: comm.all_reduce_(grads, world),
+        "TP forward all-reduce of the row-parallel layer's partial output, "
+        f"float32 {list(row_out.shape)}": lambda: comm.all_reduce_(row_out, world),
+        "TP backward all-reduce of the column-parallel layer's input gradient, "
+        f"float32 {list(col_in.shape)}": lambda: comm.all_reduce_(col_in, world),
+        f"SP logits all-gather over time, float32 {list(logits.shape)} a rank":
+            lambda: comm.all_gather(logits, world, 1),
+        f"SP halo exchange of conv_0 (23 + 24 frames of bf16 {list(slab.shape)})":
+            lambda: comm.exchange(slab[..., :24], slab[..., T - 23:], prev, nxt,
+                                  ((B, C, 23), (B, C, 24)), slab),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    return out
+
+
+def first_batch(data_dir):
+    """The first evaluate batch of phase 3j (the cache in seed-0 order)."""
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    samples = SpeechCorpusReader(data_dir).load_samples(
+        "test", feature_type="power", seed=0, limit_count=MAIN_BATCH)
+    return to_device(build_batch(list(samples)), torch.device("cuda"))
+
+
+def phase3_model(weights):
+    from speecht_tpu_torch.data.features import feature_size
+    from speecht_tpu_torch.execution import build_model
+    from speecht_tpu_torch.weights import load_weight_dir
+
+    model = build_model(feature_size("power"), types.SimpleNamespace())
+    model.load_state_dict(load_weight_dir(weights, model))
+    return model.cuda().eval()
+
+
+def sp_logits(data_dir, weights):
+    """The sequence-parallel forward's logits of the first batch on this
+    rank's grid (bf16, as evaluate runs it)."""
+    from speecht_tpu_torch.parallel import mesh as pmesh
+    from speecht_tpu_torch.parallel.seq_parallel import make_sp_forward
+
+    mesh = pmesh.make_mesh(1, 2)
+    mesh.seq_parallel = True
+    batch = first_batch(data_dir)
+    with torch.inference_mode():
+        return make_sp_forward(phase3_model(weights), mesh)(batch.features).cpu().numpy()
+
+
+def check_sp_logits(path, data_dir, weights):
+    """SP's logits against the dense forward's on the same batch
+    (``PARALLEL_LOGIT_RTOL``), and every argmax flip a near tie."""
+    from speecht_tpu_torch.train.step import make_forward_step
+
+    got = np.load(path)
+    batch = first_batch(data_dir)
+    want = make_forward_step(phase3_model(weights))(batch.features).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    valid = np.arange(want.shape[1])[None, :] < (batch.seq_lengths.cpu().numpy() // 2)[:, None]
+    flips = (got.argmax(-1) != want.argmax(-1)) & valid
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    margins = (top2[..., 1] - top2[..., 0])[flips]
+    worst = float(margins.max()) if margins.size else 0.0
+    print(f"parallel: SP logits of one batch against the dense forward's (bf16): max abs "
+          f"diff {err!r} (tolerance {PARALLEL_LOGIT_RTOL} x the largest |logit| "
+          f"{scale!r}); argmax differs on {int(flips.sum())} of {int(valid.sum())} frames, "
+          f"the largest dense top-2 margin among them {worst!r} (at most twice the max "
+          f"diff)")
+    check(err <= PARALLEL_LOGIT_RTOL * scale, "parallel: SP logits off the dense forward's")
+    check(worst <= 2 * err, "parallel: an SP argmax flip that is no near tie")
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 3j, started by ``torchrun``: each path through
+    ``CLI([...]).run()``, the kernels' launch counts set to 0 just before
+    and read just after, then the collectives' times; the results go to a
+    JSON file of this rank."""
+    from speecht_tpu_torch.ops import beam_device_cuda, conv0_cuda, ctc_cuda
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    kernels = (list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
+               + list(beam_device_cuda.KERNELS))
+    rank = int(os.environ["RANK"])
+    out = {"paths": {}}
+    for name, argv in spec["paths"]:
+        with step_losses() as steps, eval_rows() as rows:
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats, stdout = run_cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        entry = {
+            "launches": {k.name: k.launches for k in kernels},
+            "wall_s": wall,
+            "distributed": [ln for ln in stdout.splitlines() if ln.startswith("distributed:")],
+            "lines": [ln for ln in stdout.splitlines() if ln.startswith(
+                ("global step", "validation average loss", "seq-parallel", "Restored",
+                 "Done", "LED:", "precise:"))][-12:],
+            "step_marks": steps["marks"], "losses": steps["losses"],
+            "batch_marks": rows["marks"],
+        }
+        if argv[0] == "evaluate":
+            entry["stats"] = stats_fields(stats)
+            entry["rows"] = rows["rows"]
+        out["paths"][name] = entry
+    out["collectives_ms"] = collective_times(spec["n_params"])
+    logits = sp_logits(spec["data_dir"], spec["weights"])
+    if rank == 0:
+        np.save(spec["sp_logits"], logits)
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_ranks(spec, work):
+    """``torchrun --standalone --nproc-per-node 2 chip_smoke.py --rank-worker``,
+    the two ranks sharing the card (SPEECHT_SHARE_CARD=1); its whole process
+    group is killed if it outlives the time limit."""
+    spec_path = os.path.join(work, "3j-spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", os.path.abspath(__file__), "--rank-worker", spec_path]
+    env = dict(os.environ, SPEECHT_SHARE_CARD="1")
+    proc = subprocess.Popen(cmd, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        output, _ = proc.communicate()
+        print(output[-6000:])
+        raise SmokeFailure(f"phase 3j: the ranks outlived {PARALLEL_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        print(output[-6000:])
+        raise SmokeFailure(f"phase 3j: torchrun exited {proc.returncode}")
+    return [json.load(open(spec["out"].format(rank=r))) for r in range(2)]
+
+
+def rows_against(label, got, want):
+    """Decoded tokens equal (phase 4's count) and the edit distance
+    between the two decodes of each row, summed in letters and words."""
+    from speecht_tpu_torch import vocabulary
+    from speecht_tpu_torch.metrics import levenshtein
+
+    check(set(got) == set(want), f"{label}: the ranks tracked other rows than one process")
+    same = total = lev_letters = lev_words = 0
+    for expected, ids in want.items():
+        a, b = np.asarray(got[expected], np.int64), np.asarray(ids, np.int64)
+        width = max(len(a), len(b))
+        pa = np.pad(a, (0, width - len(a)), constant_values=-1)
+        pb = np.pad(b, (0, width - len(b)), constant_values=-1)
+        same += int((pa == pb).sum())
+        total += width
+        sa, sb = vocabulary.ids_to_sentence(a), vocabulary.ids_to_sentence(b)
+        lev_letters += levenshtein(sa, sb)
+        lev_words += levenshtein(sa.split(), sb.split())
+    return same / max(total, 1), same, total, lev_letters, lev_words
+
+
+def update_error(start, got, want):
+    """||(got - start) - (want - start)|| / ||want - start|| over every
+    parameter: how far two runs' parameter movements differ."""
+    num = den = 0.0
+    for name, p0 in start.items():
+        d_got, d_want = got[name] - p0, want[name] - p0
+        num += float(((d_got - d_want).double() ** 2).sum())
+        den += float((d_want.double() ** 2).sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def parallel_path(work, data_dir, weights, kernels, card):
+    """Phase 3j: the three grids of ``train`` and two of ``evaluate`` on
+    two ranks sharing the card, each against one process on the same rows;
+    a one-process evaluate restoring the DP run's checkpoint. Returns the
+    kernels' launches by path, summed over the ranks."""
+    from speecht_tpu_torch.evaluation import Evaluation
+    from speecht_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    # the phase-3 corpus (256 utterances) as the train and test splits
+    cache = os.path.join(work, "data3j", "preprocessed-power")
+    os.makedirs(cache)
+    for split in ("train", "test"):
+        os.symlink(os.path.join(data_dir, "preprocessed-power", "test"),
+                   os.path.join(cache, split))
+    data3j, train_dir = os.path.join(work, "data3j"), os.path.join(work, "train3j")
+    for run in ("ref", *PARALLEL_RUNS.values()):
+        write_port_checkpoint(os.path.join(train_dir, run), weights)
+    common = ["--data-dir", data3j, "--train-dir", train_dir,
+              "--log-dir", os.path.join(work, "log3j"), "--batch-size", str(MAIN_BATCH)]
+
+    def argv(command, grid, run="ref"):
+        if command == "train":
+            return ["train", "--max-steps", str(PARALLEL_STEPS), "--steps-per-checkpoint",
+                    str(PARALLEL_STEPS), *common, "--run-name", run, *grid]
+        return ["evaluate", "--test", "--no-save", "--step-count", str(MAIN_STEPS),
+                "--reference-weights", weights, *common, *grid]
+
+    n_params = sum(int(np.load(os.path.join(root, f), mmap_mode="r").size)
+                   for root, _d, files in os.walk(weights) for f in files)
+    spec = {"paths": [[name, argv(cmd, grid, PARALLEL_RUNS.get(name, "ref"))]
+                      for name, cmd, grid in PARALLEL_PATHS],
+            "out": os.path.join(work, "3j-rank{rank}.json"), "n_params": n_params,
+            "data_dir": data3j, "weights": weights,
+            "sp_logits": os.path.join(work, "3j-sp-logits.npy")}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_ranks(spec, work)
+    ranks_s = time.perf_counter() - t0
+
+    # one process on the same rows
+    with seeded_reader(), step_losses() as ref_steps:
+        run_cli(argv("train", []))
+    with seeded_reader(), eval_rows() as ref_rows:
+        ref_stats, _out = run_cli(argv("evaluate", []))
+    ref_stats = stats_fields(ref_stats)
+    ref_ms = step_period_ms(ref_steps["marks"])
+    print(f"parallel: one process: train {ref_ms!r} ms/step (a loss readback a step), "
+          f"losses {ref_steps['losses']!r}; evaluate {batch_period_ms(ref_rows['marks'])!r} "
+          f"ms/batch, {ref_stats}")
+
+    for line in ranks[0]["paths"][PARALLEL_PATHS[0][0]]["distributed"] + \
+            ranks[1]["paths"][PARALLEL_PATHS[0][0]]["distributed"]:
+        print(f"parallel: {line}")
+    check(all("backend gloo" in ln and "share cuda:0" in ln
+              for r in ranks for ln in r["paths"][PARALLEL_PATHS[0][0]]["distributed"]),
+          "parallel: the ranks did not report gloo on the shared card")
+    ckpt_of = lambda run: torch.load(  # noqa: E731
+        CheckpointManager(os.path.join(train_dir, run)).path(PARALLEL_STEPS),
+        map_location="cpu", weights_only=True)["params"]
+    start = torch.load(CheckpointManager(os.path.join(train_dir, "ref")).path(0),
+                       map_location="cpu", weights_only=True)["params"]
+    ref_params = ckpt_of("ref")
+    launches = {}
+    for name, command, _grid in PARALLEL_PATHS:
+        per_rank = [r["paths"][name] for r in ranks]
+        launches[name] = {k: sum(p["launches"][k] for p in per_rank) for k in per_rank[0]["launches"]}
+        for r, p in enumerate(per_rank):
+            for k in ("ctc_alpha", "ctc_beta") if command == "train" else ("ctc_alpha",):
+                check(p["launches"][k] > 0, f"parallel {name}: rank {r} never launched {k}")
+            check(p["launches"]["conv0"] == 0 and p["launches"]["beam_device"] == 0,
+                  f"parallel {name}: rank {r} launched {p['launches']}")
+            if command == "evaluate":
+                check(p["launches"]["ctc_beta"] == 0, f"parallel {name}: the backward ran")
+        print(f"parallel {name}: rank 0: " + " | ".join(per_rank[0]["lines"]))
+        if command == "train":
+            run = PARALLEL_RUNS[name]
+            losses = per_rank[0]["losses"]
+            check(len(losses) == PARALLEL_STEPS and losses == per_rank[1]["losses"],
+                  f"parallel {name}: the ranks' losses {losses} {per_rank[1]['losses']}")
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_steps["losses"])]
+            err = update_error(start, ckpt_of(run), ref_params)
+            ms = step_period_ms(per_rank[0]["step_marks"])
+            print(f"parallel {name}: losses {losses!r}, one process {ref_steps['losses']!r}, "
+                  f"rel diff {rel!r} (tolerance {PARALLEL_LOSS_RTOL}); parameters after "
+                  f"{PARALLEL_STEPS} steps: movement off one process's by {err!r} of its "
+                  f"norm (tolerance {PARALLEL_UPDATE_RTOL}); {ms!r} ms/step (one process "
+                  f"{ref_ms!r}); kernel launches (both ranks) {launches[name]}; on {card}")
+            check(max(rel) <= PARALLEL_LOSS_RTOL, f"parallel {name}: losses disagree")
+            check(err <= PARALLEL_UPDATE_RTOL, f"parallel {name}: parameters disagree")
+        else:
+            stats = per_rank[0]["stats"]
+            check(stats == per_rank[1]["stats"], f"parallel {name}: the ranks' statistics differ")
+            share, same, total, lev_l, lev_w = rows_against(name, per_rank[0]["rows"],
+                                                            ref_rows["rows"])
+            ms = batch_period_ms(per_rank[0]["batch_marks"])
+            floor = "reported" if "--seq-parallel" in name else f"at least {PARALLEL_MIN_TOKEN_SHARE}"
+            print(f"parallel {name}: {stats}, one process {ref_stats}; decoded tokens equal "
+                  f"{same}/{total} = {share!r} ({floor}); the "
+                  f"decodes' own edit distance {lev_l} letters, {lev_w} words; {ms!r} "
+                  f"ms/batch; kernel launches (both ranks) {launches[name]}; on {card}")
+            check(stats["utterances"] == ref_stats["utterances"],
+                  f"parallel {name}: {stats['utterances']} utterances tracked")
+            if "--seq-parallel" not in name:  # SP: check_sp_logits below
+                check(share >= PARALLEL_MIN_TOKEN_SHARE, f"parallel {name}: decodes disagree")
+            check(abs(stats["sum_led"] - ref_stats["sum_led"]) <= lev_l
+                  and abs(stats["sum_wed"] - ref_stats["sum_wed"]) <= lev_w,
+                  f"parallel {name}: statistics off by more than the decodes differ")
+    check_sp_logits(spec["sp_logits"], data3j, weights)
+    for r, rank in enumerate(ranks):
+        for name, times in rank["collectives_ms"].items():
+            print(f"parallel collectives, rank {r}: {name}: {times!r} ms (gloo, staged through "
+                  f"host memory: two ranks share one card, so NCCL cannot run; not NCCL's "
+                  f"times); on {card}")
+
+    # one process restores the DP run's checkpoint
+    eval_argv = ["evaluate", "--test", "--no-save", "--step-count", "1", *common,
+                 "--run-name", PARALLEL_RUNS["train --data-parallel 2"]]
+    stats, out = run_cli(eval_argv)
+    losses = [float(ln.split()[3]) for ln in out.splitlines()
+              if ln.startswith("validation average loss")]
+    restored = Evaluation(parsed_flags(eval_argv)).load_weights()
+    check(restored == PARALLEL_STEPS and len(losses) == 1 and math.isfinite(losses[0]),
+          f"parallel: one process restored step {restored}, losses {losses}")
+    print(f"parallel: one process restored the DP run's step-{restored} checkpoint, "
+          f"loss {losses[0]!r}; the ranks' run {ranks_s:.1f} s with start-up; phase 3j "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # -- phase 4: one batch, card vs CPU ----------------------------------------
 
 
@@ -3313,6 +3788,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 3j, under torchrun
+        return rank_worker(sys.argv[2])
     import concurrent.futures
 
     from speecht_tpu_torch import native
@@ -3443,6 +3920,8 @@ def main() -> int:
         export_launches = export_path(work, data_dir, weights, host_dir, kernels, card)
         record_runs = record_path(work, weights, lm_dir, host_dir, device_dir, kernels, card)
         record_runs["export (loaded program)"] = export_launches
+        # 3j. parallel/: train and evaluate on two ranks sharing the card
+        parallel_runs = parallel_path(work, data_dir, weights, kernels, card)
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
 
@@ -3472,6 +3951,9 @@ def main() -> int:
         "evaluate --from-audio": audio_greedy["ctc_beta"],
         "evaluate --from-audio --language-model": audio_lm["ctc_beta"],
     }
+    for path, n in parallel_runs.items():
+        alpha_entry["launches_by_path"][f"{path} (2 ranks)"] = n["ctc_alpha"]
+        beta_entry["launches_by_path"][f"{path} (2 ranks)"] = n["ctc_beta"]
     beta_entry["largest_bucket"] = {
         key: beta_largest[key] for key in ("shape", "ms", "library_ms", "bound_ms")
     }

@@ -19,10 +19,14 @@ microphone (pyaudio) or ``--audio-source`` files, one-shot or
 ``--streaming``, greedy or with the LM (``recording.py``); it and
 ``evaluate`` also take ``--reference-weights``. ``export`` writes the
 weights (``--weights``) and the serving artifact (``--stablehlo``, a
-``torch.export`` program a platform, ``serving.py``). Paths of the JAX
-package that the port does not have yet raise an error that names the
-flag; none is ignored: ``--seq-parallel`` and
-``--data-parallel``/``--model-parallel`` above 1.
+``torch.export`` program a platform, ``serving.py``). Launched on
+several processes (``torchrun --nproc-per-node N -m speecht_tpu_torch
+train --data-parallel N ...``), ``train`` and ``evaluate`` run on a grid
+of ranks (``--data-parallel``, ``--model-parallel``, ``--seq-parallel``;
+``parallel/``), and ``run`` prints a ``distributed:`` line for each rank
+with its backend and device. Paths of the JAX package that the port does
+not have yet raise an error that names them; none is ignored:
+``--language-model`` and ``--from-audio`` on several ranks.
 
 ``main`` prints a RuntimeError, a FileNotFoundError or a ValueError (a
 flag's value refused, such as an odd ``--export-frames``) as one line and
@@ -71,11 +75,13 @@ class CLI:
         p.add_argument("--log-dir", dest="log_dir", type=str, default="log")
         p.add_argument(
             "--data-parallel", dest="data_parallel", type=int, default=0,
-            help="Devices on the data axis (not ported: at most 1).",
+            help="Ranks on the data axis (0 = all remaining; one process "
+            "a rank, launched by torchrun).",
         )
         p.add_argument(
             "--model-parallel", dest="model_parallel", type=int, default=1,
-            help="Devices on the model axis (not ported: at most 1).",
+            help="Ranks on the model (tensor-parallel) axis: the wide "
+            "layers' channels are split over them.",
         )
         p.add_argument(
             "--compute-dtype", dest="compute_dtype", type=str,
@@ -243,7 +249,7 @@ class CLI:
         )
         p.add_argument(
             "--seq-parallel", dest="seq_parallel", type=int, default=0,
-            help="Time-sharded conv stack (not ported yet).",
+            help="Ranks sharding the conv stack over time (halo exchanges).",
         )
 
     def _add_evaluation_parser(self):
@@ -267,7 +273,7 @@ class CLI:
         self._add_reference_weights_argument(p)
         p.add_argument(
             "--seq-parallel", dest="seq_parallel", type=int, default=0,
-            help="Time-sharded conv stack (not ported yet).",
+            help="Ranks sharding the conv stack over time (halo exchanges).",
         )
         self._add_language_model_arguments(p)
         p.set_defaults(dataset="test", should_save=True)
@@ -402,12 +408,24 @@ class CLI:
         return self._parsed
 
     def _check_ported(self):
+        """Refuses, naming it, a combination the port does not run yet:
+        the LM beam and the audio front end on several ranks."""
+        from speecht_tpu_torch.parallel import comm
+
         flags = self.parsed
+        several = (
+            comm.world_size() > 1
+            or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
+            or flags.data_parallel > 1
+            or flags.model_parallel > 1
+            or getattr(flags, "seq_parallel", 0) > 1
+        )
         unported = []
-        if getattr(flags, "seq_parallel", 0) > 1:
-            unported.append("--seq-parallel")
-        if flags.data_parallel > 1 or flags.model_parallel > 1:
-            unported.append("--data-parallel/--model-parallel above 1")
+        lm = getattr(flags, "lm", None)
+        if several and lm is not None and lm.language_model:
+            unported.append(f"{flags.command} --language-model on several ranks")
+        if several and getattr(flags, "from_audio", False):
+            unported.append(f"{flags.command} --from-audio on several ranks")
         if unported:
             raise NotImplementedError(
                 f"{', '.join(unported)}: this path is not ported to "
@@ -428,6 +446,12 @@ class CLI:
             self.parser.print_help()
             return None
         self._check_ported()
+        if self.parsed.command != "preprocess":
+            # several processes: join the group torchrun's environment
+            # names (one process: nothing happens)
+            from speecht_tpu_torch.parallel import mesh as pmesh
+
+            pmesh.init_distributed(self.parsed.device)
         self._ensure_directories()
         if self.parsed.command == "preprocess":
             from speecht_tpu_torch.preprocessing import Preprocessing

@@ -1,15 +1,17 @@
 """Host -> device input pipeline: bucketed padded batches + prefetch.
 
-Counterpart of ``speecht_tpu/data/pipeline.py`` (single process):
+Counterpart of ``speecht_tpu/data/pipeline.py``:
 
 - :func:`build_batch` pads features to the batch's longest utterance,
   rounded up to a time bucket, and labels to a width that is a function of
-  that bucket, so the set of batch shapes stays small; :func:`single_batch`
+  that bucket, so the set of batch shapes stays small (in a multi-process
+  run both widths are the maxima over the ranks,
+  ``parallel/mesh.py::sync_bucket_dims``); :func:`single_batch`
   is ``record``'s batch of one without labels.
   :func:`build_audio_batch` does the same for raw audio (``--from-audio``),
   in samples.
 - :func:`batch_iterator` groups a sample generator into such batches,
-  optionally by length.
+  optionally by length (one process only).
 - :class:`PrefetchLoader` builds batches on a host thread. Features are
   cast to the transfer dtype (bf16 by default) and raw audio to int16
   (:func:`audio_to_int16`), placed in pinned memory and copied to the card
@@ -31,6 +33,8 @@ import numpy as np
 import torch
 
 from speecht_tpu_torch import vocabulary
+from speecht_tpu_torch.parallel import comm
+from speecht_tpu_torch.parallel.mesh import sync_bucket_dims
 
 
 @dataclasses.dataclass
@@ -81,6 +85,8 @@ def build_batch(
         L = max(T // 4, round_up(int(label_lengths.max()), 32), 32)
     else:
         L = round_up(max(int(label_lengths.max()), 1), label_bucket)
+    # multi-process: every rank pads this step's batch alike
+    T, L = sync_bucket_dims(T, L)
     B = max(n, pad_to_batch)
 
     features = np.zeros((B, T, input_size), dtype=np.float32)
@@ -166,6 +172,14 @@ def batch_iterator(
     ``drop_remainder``. Iteration stops after ``max_steps`` batches.
     """
     steps = 0
+
+    if group_by_length and comm.world_size() > 1:
+        raise ValueError(
+            "--group-by-length is not supported in multi-process runs: "
+            "each process's bin-fill order (and so its batch count and "
+            "shape sequence) depends on its own corpus shard, which "
+            "breaks the lockstep the cross-process collectives require"
+        )
 
     if not group_by_length:
         bucket: list = []

@@ -1,6 +1,6 @@
 """Corpus reader: transcripts, the npz feature cache and the raw audio.
 
-Counterpart of ``speecht_tpu/data/reader.py`` (one process):
+Counterpart of ``speecht_tpu/data/reader.py``:
 
 - transcript dicts from recursive ``*.trans.txt`` scans (each line is
   ``<utterance-id> WORD WORD ...``);
@@ -12,7 +12,8 @@ Counterpart of ``speecht_tpu/data/reader.py`` (one process):
   (``preprocess --device``): FLAC decoded on the host at its own rate,
   resample and DSP on the device in padded batches;
 - :meth:`load_samples`: the cache, shuffled, through the native npz reader
-  (``np.load`` only for files of another layout), and
+  (``np.load`` only for files of another layout), one equal shard a data
+  rank in a multi-process run (:func:`_equal_shard`), and
   :meth:`load_raw_samples`: the FLACs themselves (``--from-audio``).
 """
 
@@ -40,6 +41,20 @@ def iglob_recursive(directory: str, file_pattern: str) -> Iterator[str]:
     for root, _dirs, file_names in os.walk(directory):
         for filename in fnmatch.filter(file_names, file_pattern):
             yield os.path.join(root, filename)
+
+
+def _equal_shard(files: list, shard_index: int, shard_count: int) -> list:
+    """Shard ``shard_index``'s slice, truncated so every shard is the
+    same length.
+
+    The ranks build their batches in lockstep (``build_batch`` runs one
+    collective a batch, ``parallel/mesh.py::sync_bucket_dims``), so a
+    longer shard would leave its rank blocked in a collective its peers
+    never join. The cost is at most ``shard_count - 1`` trailing files of
+    the shuffled corpus.
+    """
+    per = len(files) // shard_count
+    return files[shard_index::shard_count][:per]
 
 
 def _resolve_feature_fn(feature_type) -> Callable:
@@ -377,6 +392,8 @@ class SpeechCorpusReader:
         limit_count: int = 0,
         feature_type: str = "mfcc",
         seed: int | None = None,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         """Yield (features [T, F] float32, transcript) from the cache.
 
@@ -387,16 +404,24 @@ class SpeechCorpusReader:
         is read by ``native.npz_load_sample`` (int32 transcripts); a file
         of another layout (a deflated entry, another dtype) by ``np.load``.
         A damaged file raises.
+
+        ``shard_index``/``shard_count`` give each data rank a disjoint,
+        equal slice of the (limited) list; sharding forces seed 0 when none
+        is given, as every rank must shuffle alike.
         """
         load_directory = self._get_directory(feature_type, directory)
         if not os.path.exists(load_directory):
             raise ValueError(f"Directory {load_directory} does not exist")
 
         files = sorted(iglob_recursive(load_directory, "*.npz"))
+        if shard_count > 1 and seed is None:
+            seed = 0  # every rank must agree on the permutation
         rng = random.Random(seed)
         rng.shuffle(files)
         if limit_count:
             files = files[:limit_count]
+        if shard_count > 1:
+            files = _equal_shard(files, shard_index, shard_count)
 
         while True:
             for file in files:

@@ -19,8 +19,18 @@ per-sample ``expected:``/``decoded:`` lines with LED/LER/WED/WER, one
 Unless ``--no-save``, ``eval_loss`` of the first batch goes to a
 TensorBoard event file.
 
-Weights come from ``--reference-weights`` (a ``.npy`` directory, see
-``weights.py``) or else from the latest of the port's own checkpoints in
+Several processes (``torchrun``) evaluate the cached corpus greedily on a
+grid of ranks: each data rank decodes its shard (``--data-parallel``;
+``--model-parallel`` splits the wide layers) or, with ``--seq-parallel
+N``, the conv stack is sharded over time (``parallel/seq_parallel.py``;
+not with ``--from-audio`` or ``--language-model``). The loss is averaged
+over the data group, and the decodes, labels and lengths of every batch
+are gathered to every rank, which all track the global statistics; rank
+0 prints and saves.
+
+Weights come from ``--reference-weights`` (a ``.npy`` directory or the
+reference's TF checkpoint, see ``weights.py``) or else from the latest of
+the port's own checkpoints in
 ``<train-dir>/<run-name>`` (``train/checkpoint.py``; parameters only).
 Without either the run stops with the JAX package's missing-checkpoint
 error; a directory that holds only the JAX package's orbax checkpoints
@@ -29,6 +39,7 @@ is refused (``speecht-cli export --weights`` is the bridge).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 from speecht_tpu_torch import vocabulary
@@ -38,6 +49,8 @@ from speecht_tpu_torch.execution import (
     start_readback,
 )
 from speecht_tpu_torch.metrics import EvalStatistics
+from speecht_tpu_torch.parallel import comm
+from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.train.metrics_writer import SummaryWriter
 from speecht_tpu_torch.weights import load_weight_dir
@@ -50,6 +63,23 @@ class Evaluation(DatasetExecutor):
     @property
     def from_audio(self) -> bool:
         return bool(getattr(self.flags, "from_audio", False))
+
+    @property
+    def seq_parallel(self) -> int:
+        return int(getattr(self.flags, "seq_parallel", 0) or 0)
+
+    def create_mesh(self):
+        if self.seq_parallel > 1:
+            lm = getattr(self.flags, "lm", None)
+            if self.from_audio or (lm is not None and lm.language_model):
+                raise ValueError(
+                    "--seq-parallel combines only with the cached-feature "
+                    "greedy evaluate (not --from-audio/--language-model)"
+                )
+            from speecht_tpu_torch.parallel.seq_parallel import make_sp_mesh
+
+            return make_sp_mesh(self.flags, self.seq_parallel)
+        return super().create_mesh()
 
     @property
     def wire_sr(self) -> int:
@@ -97,6 +127,7 @@ class Evaluation(DatasetExecutor):
             limit_count=limit_count,
             feature_type=self.flags.feature_type,
             max_size=getattr(self.flags, "max_input_frames", 0) or False,
+            **self.shard_kwargs,
         )
 
     def create_loader(self):
@@ -128,6 +159,8 @@ class Evaluation(DatasetExecutor):
         )
 
     def get_loader_limit_count(self) -> int:
+        # a global budget: the reader cuts the file list before it shards
+        # it, so each data rank keeps step_count local batches of it
         return self.flags.step_count * self.flags.batch_size
 
     def get_max_steps(self):
@@ -162,7 +195,11 @@ class Evaluation(DatasetExecutor):
                     self.flags.feature_type, wire_sr=self.wire_sr
                 ),
             )
-        return tstep.make_eval_step(self.model)
+        if self.seq_parallel > 1:
+            from speecht_tpu_torch.parallel.seq_parallel import make_sp_eval_step
+
+            return make_sp_eval_step(self.model, self.mesh)
+        return tstep.make_eval_step(self.model, self.mesh)
 
     def load_weights(self) -> int:
         """Loads the weights; returns the optimizer step they were saved
@@ -205,7 +242,9 @@ class Evaluation(DatasetExecutor):
         eval_step = self.make_decoder()
 
         writer = None
-        if getattr(flags, "should_save", False):
+        primary = self.mesh.primary
+        # rank 0 only: one event file a run
+        if getattr(flags, "should_save", False) and primary:
             writer = SummaryWriter(
                 os.path.join(flags.log_dir, f"{flags.run_name}_{flags.run_type}")
             )
@@ -214,19 +253,36 @@ class Evaluation(DatasetExecutor):
         print("Begin evaluation")
         results = self._result_iterator(eval_step, self.create_loader())
         for step, (batch, avg_loss, decoded, dec_lengths) in enumerate(results):
-            self._track_batch(stats, batch, decoded, dec_lengths, verbose=True)
-            print(
-                "validation average loss {:.2f} perplexity {:.2f}".format(
-                    float(avg_loss), tstep.perplexity(float(avg_loss))
+            if comm.world_size() > 1:
+                batch, decoded, dec_lengths = self._global_rows(
+                    batch, decoded, dec_lengths
                 )
-            )
+            self._track_batch(stats, batch, decoded, dec_lengths, verbose=primary)
+            if primary:
+                print(
+                    "validation average loss {:.2f} perplexity {:.2f}".format(
+                        float(avg_loss), tstep.perplexity(float(avg_loss))
+                    )
+                )
             if writer is not None and step == 0:
                 writer.add_scalars(weights_step, {"eval_loss": float(avg_loss)})
 
-        self.print_global_statistics(stats)
+        if primary:
+            self.print_global_statistics(stats)
         if writer is not None:
             writer.close()
         return stats
+
+    def _global_rows(self, batch, decoded, dec_lengths):
+        """Every data rank's rows of a batch's labels, lengths and decodes,
+        on every rank (a collective), so all ranks track the global
+        statistics."""
+        rows = lambda x: pmesh.host_global(x, self.mesh)  # noqa: E731
+        batch = dataclasses.replace(
+            batch, seq_lengths=rows(batch.seq_lengths), labels=rows(batch.labels),
+            label_lengths=rows(batch.label_lengths),
+        )
+        return batch, rows(decoded), rows(dec_lengths)
 
     @staticmethod
     def _track_batch(stats: EvalStatistics, batch, decoded, dec_lengths,

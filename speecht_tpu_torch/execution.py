@@ -2,9 +2,13 @@
 
 Counterpart of ``speecht_tpu/execution.py``: model construction from the
 flags, the fresh train state (``init_state``), the corpus reader, the
-input-size probe (width of the first cached sample), the batch loader
-wired to a per-command sample generator and the run's checkpoint manager.
-There is no mesh: the port runs on one device, named by ``--device``.
+input-size probe (width of the first cached sample), the grid of ranks
+(``create_mesh``: ``--data-parallel``/``--model-parallel``, a ``1 x 1``
+grid for one process), the batch loader wired to a per-command sample
+generator, and the run's checkpoint manager. Each rank runs on the
+device ``parallel/mesh.py::rank_device`` names for ``--device``.
+``--batch-size`` is global: each data rank reads its own shard of the
+corpus (``shard_kwargs``) and builds ``local_batch_size`` rows.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.data.pipeline import PrefetchLoader
 from speecht_tpu_torch.data.reader import SpeechCorpusReader
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
+from speecht_tpu_torch.parallel import comm
+from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.train.checkpoint import CheckpointManager
 from speecht_tpu_torch.train.state import (
     ClipAdam,
@@ -28,21 +34,22 @@ from speecht_tpu_torch.train.state import (
 
 
 def resolve_device(name: str) -> torch.device:
-    """``--device`` -> torch.device. ``cuda`` without a card raises: the
-    port never carries on on the CPU unless it was asked to."""
+    """``--device`` -> this rank's torch.device. ``cuda`` without a card
+    raises: the port never carries on on the CPU unless it was asked to."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: no CUDA device is available "
             "(pass --device cpu to run on the CPU)"
         )
-    return device
+    return pmesh.rank_device(name)
 
 
-def build_model(input_size: int, flags, seed: int = 0) -> Wav2Letter:
+def build_model(input_size: int, flags, seed: int = 0, mesh=None) -> Wav2Letter:
     """Wav2Letter with the reference dimensions by default;
     --base-channels/--wide-channels/--num-body-layers scale it. Initial
-    weights come from a CPU generator seeded with ``seed``."""
+    weights come from a CPU generator seeded with ``seed``; ``mesh`` with a
+    model axis splits the wide layers over it."""
     cfg = Wav2LetterConfig(
         input_size=input_size,
         num_classes=vocabulary.NUM_CLASSES,
@@ -51,7 +58,7 @@ def build_model(input_size: int, flags, seed: int = 0) -> Wav2Letter:
         num_body_layers=getattr(flags, "num_body_layers", 7),
         compute_dtype=getattr(flags, "compute_dtype", "bfloat16"),
     )
-    return Wav2Letter(cfg, generator=torch.Generator().manual_seed(seed))
+    return Wav2Letter(cfg, generator=torch.Generator().manual_seed(seed), mesh=mesh)
 
 
 def init_state(
@@ -105,7 +112,35 @@ class DatasetExecutor(abc.ABC):
 
         print("Determine input size from first sample")
         self.input_size = self.determine_input_size()
-        self.model = build_model(self.input_size, flags)
+        self.mesh = self.create_mesh()
+        self.model = build_model(self.input_size, flags, mesh=self.mesh)
+
+    def create_mesh(self) -> pmesh.Mesh:
+        """The grid of ranks; ValueError when the flags cannot tile them."""
+        return pmesh.auto_mesh(
+            batch_size=self.flags.batch_size,
+            data_parallel=getattr(self.flags, "data_parallel", 0),
+            model_parallel=getattr(self.flags, "model_parallel", 1),
+        )
+
+    @property
+    def shard_kwargs(self) -> dict:
+        """The reader's arguments for this rank: the data rank's shard of
+        the corpus, and one shuffle (seed 0) shared by every rank, since
+        the ranks of a model group must read the same rows."""
+        if comm.world_size() <= 1:
+            return {}
+        return {"seed": 0, "shard_index": self.mesh.data_index,
+                "shard_count": self.mesh.dp}
+
+    def local_batch_size(self) -> int:
+        """--batch-size is GLOBAL; each data rank builds its share."""
+        if self.flags.batch_size % self.mesh.dp:
+            raise ValueError(
+                f"--batch-size {self.flags.batch_size} must divide across "
+                f"{self.mesh.dp} data-parallel ranks"
+            )
+        return self.flags.batch_size // self.mesh.dp
 
     def determine_input_size(self) -> int:
         sample = next(
@@ -134,7 +169,7 @@ class DatasetExecutor(abc.ABC):
     def create_loader(self) -> PrefetchLoader:
         return PrefetchLoader(
             lambda: self.create_sample_generator(self.get_loader_limit_count()),
-            batch_size=self.flags.batch_size,
+            batch_size=self.local_batch_size(),
             device=self.device,
             time_bucket=getattr(self.flags, "bucket_step", 256),
             max_steps=self.get_max_steps(),
@@ -143,7 +178,7 @@ class DatasetExecutor(abc.ABC):
         )
 
     def checkpoint_manager(self) -> CheckpointManager:
-        return CheckpointManager(self.flags.run_train_dir)
+        return CheckpointManager(self.flags.run_train_dir, split=self.model.split)
 
     @abc.abstractmethod
     def run(self):

@@ -25,6 +25,20 @@ and a shape ``ops/conv0.py::supported`` admits, it runs through
 the plain version on the CPU) on the ``[B, T, F]`` features, rounding once
 after the bias as the Pallas path does. Any other shape (odd T, mfcc's 39
 features, T < 48) takes the cuDNN path, which is JAX's semantics.
+
+Tensor parallelism (``--model-parallel N``, ``parallel/mesh.py``) splits
+the wide layers Megatron's way: the first wide layer (``conv_8`` at the
+reference's depth, ``1 + num_body_layers``) is column-parallel, each
+model rank computing its ``wide_channels / N`` output channels; the
+second (``conv_9``) is row-parallel, each rank convolving its channel
+shard into a partial sum that is all-reduced (in float32) before the bias
+and the ReLU; ``conv_10`` is replicated. :class:`CopyToModel` (identity
+forward, all-reduce backward) in front of the column layer and
+:class:`ReduceFromModel` (all-reduce forward, identity backward) after
+the row layer make the backward right. Fresh weights are drawn at full
+size and sliced, so a split model starts where one device's does; the
+state dict holds the shards and ``weights.TensorSplit`` converts to and
+from the one-device layout.
 """
 
 from __future__ import annotations
@@ -40,6 +54,8 @@ from torch import nn
 
 from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.ops import conv0, conv0_cuda
+from speecht_tpu_torch.parallel import comm
+from speecht_tpu_torch.weights import TensorSplit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +88,48 @@ def same_padding(length: int, width: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over the model group, in float32, back in x's dtype."""
+    total = comm.all_reduce_(x.float(), group)
+    return total.to(x.dtype)
+
+
+class CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; the backward sums the input's
+    gradient over the model group (each rank's column shard contributes)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over_model(g, ctx.group), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the forward sums the row shards' partial outputs
+    over the model group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over_model(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class Conv1d(nn.Module):
-    """One conv1d + bias (+ ReLU) layer. ``weight`` is ``[O, I, W]``."""
+    """One conv1d + bias (+ ReLU) layer. ``weight`` is ``[O, I, W]``.
+
+    ``shard`` = ``(dim, index, parts, group)`` makes the layer hold part
+    ``index`` of ``parts`` of the weight's dim ``dim``: 0 splits the output
+    channels and the bias (column-parallel), 1 the input channels
+    (row-parallel: the partial sums are reduced over ``group`` before the
+    bias and the ReLU).
+    """
 
     def __init__(
         self,
@@ -82,22 +138,36 @@ class Conv1d(nn.Module):
         width: int,
         stride: int,
         relu: bool,
+        shard: tuple | None = None,
     ):
         super().__init__()
         self.width = width
         self.stride = stride
         self.relu = relu
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, width)
+        self.full_shape = (out_channels, in_channels, width)
+        self.shard = shard
+        shape = list(self.full_shape)
+        if shard is not None:
+            shape[shard[0]] //= shard[2]
+        self.weight = nn.Parameter(torch.empty(*shape))
+        self.bias = nn.Parameter(
+            torch.zeros(shape[0] if shard and shard[0] == 0 else out_channels)
         )
-        self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Glorot uniform with fan_in = W*I, fan_out = W*O; zero bias."""
-        o, i, w = self.weight.shape
+        """Glorot uniform with fan_in = W*I, fan_out = W*O; zero bias.
+        A shard is cut from the full draw."""
+        o, i, w = self.full_shape
         limit = math.sqrt(6.0 / (w * i + w * o))
         with torch.no_grad():
-            self.weight.uniform_(-limit, limit, generator=generator)
+            if self.shard is None:
+                self.weight.uniform_(-limit, limit, generator=generator)
+            else:
+                full = torch.empty(self.full_shape).uniform_(
+                    -limit, limit, generator=generator
+                )
+                dim, index, parts, _group = self.shard
+                self.weight.copy_(full.chunk(parts, dim=dim)[index])
             self.bias.zero_()
 
     def conv0_path(self, x: torch.Tensor) -> bool:
@@ -119,9 +189,15 @@ class Conv1d(nn.Module):
                 self.bias.to(dtype),
             )
             return y.transpose(1, 2)
+        column = self.shard is not None and self.shard[0] == 0
+        row = self.shard is not None and self.shard[0] == 1
+        if column:
+            x = CopyToModel.apply(x, self.shard[3])
         left, right = same_padding(x.shape[-1], self.width, self.stride)
         x = F.pad(x.to(dtype), (left, right))
         y = F.conv1d(x, self.weight.to(dtype), stride=self.stride)
+        if row:
+            y = ReduceFromModel.apply(y, self.shard[3])
         y = y + self.bias.to(dtype)[:, None]
         if self.relu:
             y = torch.relu(y)
@@ -135,18 +211,39 @@ class Wav2Letter(nn.Module):
         self,
         config: Wav2LetterConfig = Wav2LetterConfig(),
         generator: torch.Generator | None = None,
+        mesh=None,
     ):
+        """``mesh`` (``parallel/mesh.py``) with a model axis above 1 and no
+        sequence parallelism splits the wide layers over its model group."""
         super().__init__()
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
+        wide = 1 + config.num_body_layers
+        shards = {}
+        self.split = TensorSplit()
+        if mesh is not None and mesh.mp > 1 and not mesh.seq_parallel:
+            if config.wide_channels % mesh.mp:
+                raise ValueError(
+                    f"--model-parallel {mesh.mp} must divide --wide-channels "
+                    f"{config.wide_channels}"
+                )
+            shards = {wide: 0, wide + 1: 1}
+            self.split = TensorSplit(
+                dims={f"conv_{wide}.weight": 0, f"conv_{wide}.bias": 0,
+                      f"conv_{wide + 1}.weight": 1},
+                index=mesh.model_index, parts=mesh.mp, mesh=mesh,
+            )
         in_channels = config.input_size
         self.layer_names = []
         for i, (width, stride, out_channels, relu) in enumerate(
             config.layer_specs
         ):
             name = f"conv_{i}"
+            shard = None
+            if i in shards:
+                shard = (shards[i], mesh.model_index, mesh.mp, mesh.model_group)
             self.add_module(
-                name, Conv1d(in_channels, out_channels, width, stride, relu)
+                name, Conv1d(in_channels, out_channels, width, stride, relu, shard)
             )
             self.layer_names.append(name)
             in_channels = out_channels

@@ -5,7 +5,10 @@ alone (no PyTorch headers) into ``_build/lib<name>-<digest>.so`` inside
 the package, where ``<digest>`` hashes the source, the shared headers
 ``csrc/*.cuh`` and the flags, so an edited source rebuilds and a built one
 is reused. :func:`build` starts one ``nvcc`` per missing library, all at
-once, and waits for them.
+once, and waits for them. Processes that share the build directory (the
+ranks of a multi-process run) may build the same library at once: each
+writes its own ``.so`` and compiler log under a name with its pid and
+publishes both with ``os.replace``.
 Nothing is built when a module is imported: the wrappers call
 :func:`load` at their first launch.
 """
@@ -70,21 +73,24 @@ def build(names: list[str]) -> dict[str, str]:
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
+        tmp_log = f"{log_path(name)}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        log = open(log_path(name), "w")
+        log = open(tmp_log, "w")
         running[name] = (
             subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
             log,
             tmp,
+            tmp_log,
         )
     failed = []
-    for name, (proc, log, tmp) in running.items():
+    for name, (proc, log, tmp, tmp_log) in running.items():
         proc.wait()
         log.close()
         if proc.returncode == 0:
+            os.replace(tmp_log, log_path(name))
             os.replace(tmp, paths[name])
         else:
-            with open(log_path(name)) as f:
+            with open(tmp_log) as f:
                 failed.append(f"{name}.cu:\n{f.read()}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

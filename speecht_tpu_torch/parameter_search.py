@@ -14,7 +14,8 @@ The weights are runtime arguments of the search, so the device part
 candidate only re-runs the beam over the same emissions: read back from
 the card for the host beam, left on the card with ``--device-beam`` (each
 candidate then re-runs only the beam kernel). Weights come from the
-port's own checkpoint in ``<train-dir>/<run-name>``.
+port's own checkpoint in ``<train-dir>/<run-name>``. The search runs in
+one process; under a distributed launcher it raises, as JAX's does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.evaluation import Evaluation
 from speecht_tpu_torch.metrics import EvalStatistics
 from speecht_tpu_torch.ops.beam import BeamSearchDecoder
+from speecht_tpu_torch.parallel import comm
 
 
 class Candidate:
@@ -80,6 +82,14 @@ class LanguageModelParameterSearch(Evaluation):
     """Local search over the three decode weights on the dev split."""
 
     def __init__(self, flags):
+        if comm.world_size() > 1:
+            # the search is host-driven state (unseeded mutations, a
+            # population each process would evolve differently): run
+            # distributed, it would score candidates on divergent data
+            raise ValueError(
+                "search runs single-process; launch it without the "
+                "distributed environment (torchrun's RANK, WORLD_SIZE etc.)"
+            )
         super().__init__(flags)
         self.candidates: list[Candidate] = []
         self.num_iterations = 0

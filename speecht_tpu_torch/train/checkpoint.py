@@ -15,6 +15,12 @@ it with ``os.replace``, so a crash mid-write leaves no file under a
 checkpoint's name; leftover temporary files are ignored. The newest
 ``max_to_keep`` checkpoints are kept.
 
+In a multi-process run the file is the same: every rank takes part in
+gathering the tensor-parallel shards (``weights.TensorSplit``), rank 0
+writes the one-device layout, and a barrier ends the save; a restore
+waits at a barrier, then every rank reads the file and takes its shards.
+So a checkpoint moves between world sizes and grids.
+
 A directory that holds only the JAX package's orbax steps is refused with
 a clear error rather than misread or trained over. The bridge from the
 JAX package to the port is ``speecht-cli export --weights DIR`` and the
@@ -30,8 +36,9 @@ import re
 import numpy as np
 import torch
 
+from speecht_tpu_torch.parallel import comm
 from speecht_tpu_torch.train.state import AdamState, TrainState
-from speecht_tpu_torch.weights import copy_into, params_to_jax
+from speecht_tpu_torch.weights import TensorSplit, copy_into, params_to_jax
 
 FORMAT = "speecht_tpu_torch/checkpoint/1"
 _NAME = re.compile(r"ckpt-(\d+)\.pt$")
@@ -41,10 +48,23 @@ def _cpu(tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
 
+def _rank0_decides(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank (``flag`` itself for one process)."""
+    if not comm.initialized():
+        return flag
+    return bool(comm.host_all_gather(np.asarray([flag]))[0][0])
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(
+        self, directory: str, max_to_keep: int = 5,
+        split: TensorSplit = TensorSplit(),
+    ):
+        """``split``: the model's tensor-parallel split, so that the file
+        holds full tensors and each rank restores its shards."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.split = split
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
@@ -67,31 +87,36 @@ class CheckpointManager:
         The training loop passes its micro-batch counter, so labels,
         printed step lines and ``--max-steps`` share one unit under
         ``--grad-accum``. A label that exists already is not written
-        again. Saves are synchronous.
+        again. Saves are synchronous. In a multi-process run every rank
+        calls it at the same step (a collective).
         """
         if step is None:
             step = int(state.step)
         path = self.path(step)
-        if os.path.exists(path):
+        # one decision for every rank: a rank that looked after rank 0
+        # wrote would see the file
+        if _rank0_decides(os.path.exists(path)):
             return
         payload = {
             "format": FORMAT,
             "step_label": step,
-            "params": _cpu(state.params),
-            "mu": _cpu(state.opt_state.mu),
-            "nu": _cpu(state.opt_state.nu),
+            "params": _cpu(self.split.unshard(state.params)),
+            "mu": _cpu(self.split.unshard(state.opt_state.mu)),
+            "nu": _cpu(self.split.unshard(state.opt_state.nu)),
             "count": int(state.opt_state.count),
             "step": int(state.step),
             "learning_rate": float(state.learning_rate),
         }
-        tmp = f"{path}.tmp-{os.getpid()}"
-        with open(tmp, "wb") as f:
-            torch.save(payload, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-        for old in self.all_steps()[: -self.max_to_keep]:
-            os.remove(self.path(old))
+        if comm.rank() == 0:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            with open(tmp, "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            for old in self.all_steps()[: -self.max_to_keep]:
+                os.remove(self.path(old))
+        comm.barrier()
 
     def _orbax_steps(self) -> list[str]:
         return sorted(
@@ -100,6 +125,7 @@ class CheckpointManager:
         )
 
     def _load_latest(self, what: str) -> tuple[int, dict]:
+        comm.barrier()  # no rank reads while another writes
         step = self.latest_step()
         if step is None:
             orbax = self._orbax_steps()
@@ -144,10 +170,11 @@ class CheckpointManager:
         FileNotFoundError when no checkpoint exists.
         """
         step, payload = self._load_latest("evaluation")
+        shard = self.split.shard
         try:
-            copy_into(template.params, payload["params"], "params")
-            copy_into(template.opt_state.mu, payload["mu"], "mu")
-            copy_into(template.opt_state.nu, payload["nu"], "nu")
+            copy_into(template.params, shard(payload["params"]), "params")
+            copy_into(template.opt_state.mu, shard(payload["mu"]), "mu")
+            copy_into(template.opt_state.nu, shard(payload["nu"]), "nu")
             device = template.step.device
             state = TrainState(
                 params=template.params,
@@ -177,7 +204,7 @@ class CheckpointManager:
         ``params`` (in place); returns its optimizer step."""
         step, payload = self._load_latest("evaluation")
         try:
-            copy_into(params, payload["params"], "params")
+            copy_into(params, self.split.shard(payload["params"]), "params")
         except Exception as e:
             raise self._corrupt(step, e) from e
         return int(payload["step"])

@@ -10,7 +10,8 @@ Copy of the scalar, raw-histogram and image part of
 so ``evaluate`` writes ``eval_loss`` and ``train`` its scalars,
 parameter histograms (from device-reduced stats, ``train/summaries.py``)
 and, with ``--verbose-summaries``, grayscale PNG images and activation
-histograms to ``log/<run>_<type>`` as the JAX package does.
+histograms to ``log/<run>_<type>`` as the JAX package does; on ranks
+above 0 of a multi-process run :class:`NullSummaryWriter` writes nothing.
 """
 
 from __future__ import annotations
@@ -210,3 +211,23 @@ class SummaryWriter:
 
     def close(self):
         self._f.close()
+
+
+class NullSummaryWriter:
+    """No-op writer for ranks above 0 in multi-process runs: one event
+    file per run, written by rank 0."""
+
+    def add_scalars(self, step, scalars):
+        pass
+
+    def add_raw_histograms(self, step, stats):
+        pass
+
+    def add_images(self, step, images):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass

@@ -69,15 +69,16 @@ class ClipAdam:
         )
 
     def update(
-        self, grads: dict[str, torch.Tensor], state: AdamState
+        self, grads: dict[str, torch.Tensor], state: AdamState, norm=None
     ) -> tuple[dict[str, torch.Tensor], AdamState, torch.Tensor]:
         """(grads, state) -> (updates, new state, norm of ``grads``).
 
         The first two are optax's ``tx.update``; the third is the global
         norm before the clip, which the clip computes and the train step
-        reports as ``grad_norm``.
+        reports as ``grad_norm``. ``norm`` replaces it where ``grads`` are
+        a tensor-parallel rank's shards of the gradient (``train/step.py``).
         """
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads) if norm is None else norm
         trigger = g_norm < self.max_gradient_norm
         grads = {
             k: torch.where(trigger, g, (g / g_norm) * self.max_gradient_norm)

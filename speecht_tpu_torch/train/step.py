@@ -17,6 +17,21 @@ counter is a host int (it is known without asking the device, so no
 device-side ``cond`` is needed as in JAX). With SpecAugment the masks'
 key (optimizer step, micro-batch) is kept on the host too; the step reads
 ``state.step`` once, at its first call.
+
+Every builder takes an optional ``mesh`` (``parallel/mesh.py``); without
+one, or on a ``1 x 1`` mesh, nothing below communicates. On a grid of
+ranks:
+
+- the loss all-reduces the masked loss sum and the real-row count over
+  the data group and divides once (an average of the ranks' averages is
+  wrong when they hold different numbers of real rows);
+- the gradients are summed over the data group (over every rank under
+  sequence parallelism, whose slabs each give part of a gradient), after
+  ``--grad-accum``'s accumulation, once an update. A tensor-parallel
+  shard's gradient is its own; a replicated layer's is the same on every
+  model rank and is not summed over the model axis;
+- the clip's global norm sums the shards' squares over the model group
+  and counts each replicated parameter once.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import torch
 
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, output_length
 from speecht_tpu_torch.ops import ctc_cuda, decode
+from speecht_tpu_torch.parallel.mesh import Mesh
 from speecht_tpu_torch.train.state import ClipAdam, TrainState
 
 
@@ -36,23 +52,37 @@ def perplexity(loss: float) -> float:
     return math.exp(loss) if loss < 300 else float("inf")
 
 
-def make_loss_fn(model: Wav2Letter) -> Callable:
+def make_loss_fn(
+    model: Wav2Letter, mesh: Mesh | None = None,
+    logits_fn: Callable | None = None,
+) -> Callable:
     """batch -> (average CTC loss, logits).
 
     The average runs over rows that are real (``seq_lengths > 0``; the
     all-zero rows of a padded last batch are not) and CTC-feasible (loss
-    below the 1e29 sentinel), divided by ``max(count, 1)``.
+    below the 1e29 sentinel), divided by ``max(count, 1)``, both summed
+    over the mesh's data group: the value is the global average, and the
+    gradient this rank's share of it (its own rows' sum over the global
+    count), so the gradients summed over the data group are the global
+    average's. ``logits_fn`` (batch -> logits) replaces the dense forward,
+    as the sequence-parallel loss does.
     """
+    mesh = mesh or Mesh()
 
     def loss_fn(batch):
-        logits = model(batch.features)
+        logits = logits_fn(batch) if logits_fn else model(batch.features)
         logit_lengths = output_length(batch.seq_lengths)
         # the CUDA alpha kernel on the card, the plain version on the CPU
         losses = ctc_cuda.ctc_loss(
             logits, logit_lengths, batch.labels, batch.label_lengths
         )
         real = (batch.seq_lengths > 0) & (losses < 1e29)
-        avg_loss = torch.where(real, losses, 0.0).sum() / real.sum().clamp(
+        local = torch.where(real, losses, 0.0).sum()
+        totals = torch.stack([local.detach(), real.sum().to(local.dtype)])
+        mesh.all_reduce_(totals, "data")
+        # the value of the global sum, the gradient of this rank's
+        # (the difference is 0 for one rank)
+        avg_loss = (local + (totals[0] - local.detach())) / totals[1].clamp(
             min=1
         )
         return avg_loss, logits
@@ -60,9 +90,11 @@ def make_loss_fn(model: Wav2Letter) -> Callable:
     return loss_fn
 
 
-def make_eval_step(model: Wav2Letter) -> Callable:
+def make_eval_step(
+    model: Wav2Letter, mesh: Mesh | None = None, loss_fn: Callable | None = None
+) -> Callable:
     """Returns batch -> (loss, decoded [B, T//2], decoded_lengths [B])."""
-    loss_fn = make_loss_fn(model)
+    loss_fn = loss_fn or make_loss_fn(model, mesh)
 
     @torch.inference_mode()
     def eval_step(batch):
@@ -129,9 +161,10 @@ def make_audio_eval_step(model: Wav2Letter, front_end: Callable) -> Callable:
     return eval_step
 
 
-def _make_grad_fn(model: Wav2Letter) -> Callable:
-    """(params, batch) -> (grads by name, average loss), loss detached."""
-    loss_fn = make_loss_fn(model)
+def _make_grad_fn(model: Wav2Letter, mesh: Mesh | None, loss_fn=None) -> Callable:
+    """(params, batch) -> (this rank's grads by name, average loss), loss
+    detached."""
+    loss_fn = loss_fn or make_loss_fn(model, mesh)
 
     def grad_fn(params, batch):
         with torch.enable_grad():
@@ -142,12 +175,43 @@ def _make_grad_fn(model: Wav2Letter) -> Callable:
     return grad_fn
 
 
-def _apply_grads(state: TrainState, grads, tx: ClipAdam):
+def _reduce_grads(grads: dict, mesh: Mesh) -> dict:
+    """Sums this rank's gradients over the data group (every rank under
+    sequence parallelism), in one float32 bucket."""
+    axis = "world" if mesh.seq_parallel else "data"
+    if mesh.group(axis) is None:
+        return grads
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    mesh.all_reduce_(flat, axis)
+    out, at = {}, 0
+    for name, g in grads.items():
+        out[name] = flat[at: at + g.numel()].view_as(g)
+        at += g.numel()
+    return out
+
+
+def _grad_norm(grads: dict, model: Wav2Letter, mesh: Mesh):
+    """The global norm of the whole model's gradient: the tensor-parallel
+    shards' squares summed over the model group, the replicated
+    parameters counted once. None for an unsplit model (the optimizer
+    computes it)."""
+    split = model.split.dims
+    if not split or mesh.model_group is None:
+        return None
+    sharded = torch.stack([torch.sum(grads[n] * grads[n]) for n in split]).sum()
+    mesh.all_reduce_(sharded, "model")
+    replicated = sum(torch.sum(g * g) for n, g in grads.items() if n not in split)
+    return torch.sqrt(replicated + sharded)
+
+
+def _apply_grads(state: TrainState, grads, tx: ClipAdam, norm=None):
     """clip -> Adam -> lr-scaled update on a (possibly accumulated) grad.
 
-    Returns (new state, global norm of ``grads`` before the clip).
+    ``norm`` is the gradient's global norm when the optimizer cannot see
+    the whole gradient (tensor parallelism). Returns (new state, global
+    norm of ``grads`` before the clip).
     """
-    updates, opt_state, grad_norm = tx.update(grads, state.opt_state)
+    updates, opt_state, grad_norm = tx.update(grads, state.opt_state, norm)
     # the learning rate multiplies *after* clip+Adam, so the plateau decay
     # needs no optimizer rebuild
     with torch.no_grad():
@@ -162,20 +226,30 @@ def _apply_grads(state: TrainState, grads, tx: ClipAdam):
     return new_state, grad_norm
 
 
-def _make_update_fn(model: Wav2Letter, tx: ClipAdam):
-    grad_fn = _make_grad_fn(model)
+def _reduce_and_apply(state: TrainState, grads, tx: ClipAdam, model, mesh):
+    grads = _reduce_grads(grads, mesh)
+    return _apply_grads(state, grads, tx, _grad_norm(grads, model, mesh))
+
+
+def _make_update_fn(model: Wav2Letter, tx: ClipAdam, mesh: Mesh, loss_fn=None):
+    grad_fn = _make_grad_fn(model, mesh, loss_fn)
 
     def update(state: TrainState, batch):
         grads, avg_loss = grad_fn(state.params, batch)
-        new_state, grad_norm = _apply_grads(state, grads, tx)
+        new_state, grad_norm = _reduce_and_apply(state, grads, tx, model, mesh)
         return new_state, avg_loss, grad_norm
 
     return update
 
 
-def make_train_step(model: Wav2Letter, tx: ClipAdam) -> Callable:
-    """Returns (state, batch) -> (state, metrics); updates in place."""
-    update = _make_update_fn(model, tx)
+def make_train_step(
+    model: Wav2Letter, tx: ClipAdam, mesh: Mesh | None = None,
+    loss_fn: Callable | None = None,
+) -> Callable:
+    """Returns (state, batch) -> (state, metrics); updates in place.
+    ``loss_fn`` replaces :func:`make_loss_fn`'s (the sequence-parallel
+    loss)."""
+    update = _make_update_fn(model, tx, mesh or Mesh(), loss_fn)
 
     def train_step(state: TrainState, batch):
         learning_rate = state.learning_rate
@@ -241,7 +315,8 @@ def init_grad_accum(params: dict[str, torch.Tensor]) -> dict:
 
 
 def make_train_step_acc(
-    model: Wav2Letter, tx: ClipAdam, accum_steps: int = 1, augment_fn=None
+    model: Wav2Letter, tx: ClipAdam, accum_steps: int = 1, augment_fn=None,
+    mesh: Mesh | None = None, loss_fn: Callable | None = None,
 ) -> Callable:
     """Accumulating train step: (state, acc, batch) -> (state, acc).
 
@@ -256,8 +331,11 @@ def make_train_step_acc(
     ``augment_fn`` (``ops/augment.py::make_augment_fn``) transforms each
     micro-batch before the loss, keyed on the optimizer step and the
     micro-batch index of the metrics window, as in JAX; both keys are host
-    integers (:class:`_AugmentKey`, ``acc["micro"]``).
+    integers (:class:`_AugmentKey`, ``acc["micro"]``). ``mesh`` and
+    ``loss_fn`` as in :func:`make_train_step`; the gradients are reduced
+    over the ranks once an update, after the accumulation.
     """
+    mesh = mesh or Mesh()
     key = _AugmentKey()
 
     def augment(state, acc, batch):
@@ -266,7 +344,7 @@ def make_train_step_acc(
         return augment_fn(batch, key(state), acc["micro"])
 
     if accum_steps <= 1:
-        update = _make_update_fn(model, tx)
+        update = _make_update_fn(model, tx, mesh, loss_fn)
 
         def train_step(state: TrainState, acc, batch):
             batch = augment(state, acc, batch)
@@ -276,7 +354,7 @@ def make_train_step_acc(
 
         return train_step
 
-    grad_fn = _make_grad_fn(model)
+    grad_fn = _make_grad_fn(model, mesh, loss_fn)
     g = float(accum_steps)
 
     def train_step_accum(state: TrainState, gacc, acc, batch):
@@ -287,7 +365,7 @@ def make_train_step_acc(
         grad_norm, applied = 0.0, 0.0
         if k >= accum_steps:
             gavg = {name: x / g for name, x in gsum.items()}
-            state, grad_norm = _apply_grads(state, gavg, tx)
+            state, grad_norm = _reduce_and_apply(state, gavg, tx, model, mesh)
             gsum = {name: torch.zeros_like(x) for name, x in gsum.items()}
             k, applied = 0, 1.0
             key.applied()

@@ -112,7 +112,8 @@ def make_activation_summarizer(model) -> Callable:
     Reruns the forward under ``no_grad`` on the summary batch with a
     forward hook on each ``conv_i`` (whichever path conv_0 takes):
     ``activations/conv_i`` histograms, the ``logits`` histogram and the
-    ``[C, T]`` logits image of the first row (``logits[0].T``).
+    ``[C, T]`` logits image of the first row (``logits[0].T``). A
+    tensor-parallel rank gathers the column-parallel layer's channels.
     """
 
     def summarize(features: torch.Tensor):
@@ -126,6 +127,12 @@ def make_activation_summarizer(model) -> Callable:
         try:
             with torch.no_grad():
                 logits = model(features)
+                split = model.split
+                for name in model.layer_names:
+                    if f"{name}.bias" in split.dims:  # a column-parallel shard
+                        outputs[name] = split.mesh.all_gather(
+                            outputs[name], "model", dim=1
+                        )
                 tags = [f"activations/{name}" for name in model.layer_names]
                 rows = [device_histogram(outputs[name]) for name in model.layer_names]
                 rows.append(device_histogram(logits))

@@ -1,7 +1,7 @@
 """Training executor.
 
 Counterpart of ``speecht_tpu/training.py`` (``Training``,
-``should_decay_learning_rate``, ``perplexity``), on one device:
+``should_decay_learning_rate``, ``perplexity``):
 
 - an infinite shuffled generator over the cached train split, with
   ``--limit-training-set`` and ``--max-input-frames``;
@@ -26,15 +26,26 @@ Counterpart of ``speecht_tpu/training.py`` (``Training``,
   deferred stop at a step boundary, then a crash-save.
 
 The loss and grad-norm sums stay on the device; the loop reads them back
-once per interval, never per step. The multi-process, mesh and
-sequence-parallel branches of the JAX loop are not ported (the CLI
-refuses their flags).
+once per interval, never per step.
+
+Several processes (``torchrun``; ``parallel/mesh.py``) run the same loop
+in lockstep on a grid of ranks: ``--data-parallel``/``--model-parallel``
+(``execution.py::create_mesh``) or ``--seq-parallel N`` (the time-sharded
+conv stack of ``parallel/seq_parallel.py``, which raises
+``--bucket-step`` to ``96 N``). Each data rank reads its shard; the step
+reduces the loss and gradients over the ranks (``train/step.py``). Rank 0
+prints the interval lines and writes the summaries (a
+``NullSummaryWriter`` elsewhere); every rank takes part in the gathers of
+the summaries and checkpoints. After an interrupt or a crash no rank
+crash-saves alone: the ranks stop at different steps, and a relaunch
+resumes from the last checkpoint they wrote together.
 """
 
 from __future__ import annotations
 
 import os
 import signal
+import sys
 import time
 
 import torch
@@ -43,7 +54,8 @@ from speecht_tpu_torch.execution import DatasetExecutor, init_state
 from speecht_tpu_torch.ops.augment import make_augment_fn
 from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.train import summaries as tsummaries
-from speecht_tpu_torch.train.metrics_writer import SummaryWriter
+from speecht_tpu_torch.parallel import comm
+from speecht_tpu_torch.train.metrics_writer import NullSummaryWriter, SummaryWriter
 from speecht_tpu_torch.train.step import perplexity
 
 
@@ -60,9 +72,20 @@ def should_decay_learning_rate(
 
 class Training(DatasetExecutor):
     @property
+    def seq_parallel(self) -> int:
+        return int(getattr(self.flags, "seq_parallel", 0) or 0)
+
+    @property
     def grad_accum(self) -> int:
         """Micro-batches per optimizer update (``--grad-accum``)."""
         return int(getattr(self.flags, "grad_accum", 1) or 1)
+
+    def create_mesh(self):
+        if self.seq_parallel > 1:
+            from speecht_tpu_torch.parallel.seq_parallel import make_sp_mesh
+
+            return make_sp_mesh(self.flags, self.seq_parallel)
+        return super().create_mesh()
 
     def create_sample_generator(self, limit_count: int):
         return self.reader.load_samples(
@@ -71,6 +94,7 @@ class Training(DatasetExecutor):
             limit_count=limit_count,
             feature_type=self.flags.feature_type,
             max_size=getattr(self.flags, "max_input_frames", 0) or False,
+            **self.shard_kwargs,
         )
 
     def get_loader_limit_count(self) -> int:
@@ -112,12 +136,24 @@ class Training(DatasetExecutor):
                 f"SpecAugment on: 2 freq masks (width <= {fw}), "
                 f"2 time masks (width <= {tf_frac:.2f} x valid frames)"
             )
+        sp_loss_fn = None
+        if self.seq_parallel > 1:
+            # long utterances: the conv stack sharded over time (halo
+            # exchanges) instead of discarding what does not fit a card
+            from speecht_tpu_torch.parallel.seq_parallel import make_sp_loss_fn
+
+            sp_loss_fn = make_sp_loss_fn(self.model, self.mesh)
         train_step = tstep.make_train_step_acc(
-            self.model, tx, accum_steps=self.grad_accum, augment_fn=augment_fn
+            self.model, tx, accum_steps=self.grad_accum, augment_fn=augment_fn,
+            mesh=self.mesh, loss_fn=sp_loss_fn,
         )
-        writer = SummaryWriter(
-            os.path.join(flags.log_dir, f"{flags.run_name}_{flags.run_type}")
-        )
+        # one event file a run, written by rank 0
+        if self.mesh.primary:
+            writer = SummaryWriter(
+                os.path.join(flags.log_dir, f"{flags.run_name}_{flags.run_type}")
+            )
+        else:
+            writer = NullSummaryWriter()
 
         print("Begin training")
         self._latest_state = state
@@ -141,7 +177,20 @@ class Training(DatasetExecutor):
         finally:
             for sig, handler in prev_handlers:
                 signal.signal(sig, handler)
-            ckpt.save(self._latest_state, step=self._latest_global_step)
+            crashing = sys.exc_info()[0] is not None
+            if (self._stop_requested or crashing) and comm.world_size() > 1:
+                # the signal or the error lands at another step on each
+                # rank, so a save (a collective) would wait for peers that
+                # are training on or gone; every interval's checkpoint was
+                # written by all ranks together
+                print(
+                    "distributed interrupt/crash: skipping solo "
+                    f"crash-save; relaunch resumes from cooperative "
+                    f"checkpoint step {ckpt.latest_step()}",
+                    flush=True,
+                )
+            else:
+                ckpt.save(self._latest_state, step=self._latest_global_step)
             writer.close()
         print("Done training -- step limit reached")
         return state
@@ -242,17 +291,19 @@ class Training(DatasetExecutor):
         # grad norms exist only at optimizer applies
         avg_grad_norm = grad_norm_sum / max(updates, 1.0)
         step_time = (time.time() - window_start) / flags.steps_per_checkpoint
-        print(
-            "global step {:d} learning rate {:.4f} step-time "
-            "{:.2f} average loss {:.2f} perplexity {:.2f}".format(
-                global_step, lr, step_time, avg_loss, perplexity(avg_loss)
-            ),
-            flush=True,
-        )
+        primary = comm.rank() == 0
+        if primary:
+            print(
+                "global step {:d} learning rate {:.4f} step-time "
+                "{:.2f} average loss {:.2f} perplexity {:.2f}".format(
+                    global_step, lr, step_time, avg_loss, perplexity(avg_loss)
+                ),
+                flush=True,
+            )
         d_n = loader.stall_count - stall_mark[0]
         d_s = loader.stall_seconds - stall_mark[1]
         stall_mark = (loader.stall_count, loader.stall_seconds)
-        if d_n:
+        if d_n and primary:
             print(
                 f"prefetch stalled {d_n} times ({d_s:.2f}s) this interval",
                 flush=True,
@@ -267,7 +318,11 @@ class Training(DatasetExecutor):
         })
         # parameter histograms (+ filter/bias images when verbose), and the
         # activation summaries of the interval's last batch
-        hists, images = param_summarizer(state.params)
+        params = state.params
+        if comm.world_size() > 1:
+            # the one-device layout (tensor-parallel shards gathered on every rank)
+            params = self.model.split.unshard(params)
+        hists, images = param_summarizer(params)
         writer.add_raw_histograms(global_step, hists)
         if images:
             writer.add_images(global_step, images)
@@ -287,7 +342,8 @@ class Training(DatasetExecutor):
         previous_losses.append(avg_loss)
 
         ckpt.save(state, step=global_step)
-        print("Model saved", flush=True)
+        if primary:
+            print("Model saved", flush=True)
         return state, time.time(), stall_mark
 
 

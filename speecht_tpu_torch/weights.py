@@ -8,9 +8,15 @@
 - :func:`load_weight_dir` reads a directory of ``.npy`` files in either
   layout: the reference's export (``convolution_layer_i/filters:0.npy``
   and ``bias:0.npy``, as ``speecht_tpu/compat.py`` reads it) or the JAX
-  package's ``export --weights`` (``conv_i/kernel.npy``, ``bias.npy``).
-  A model trained by the JAX package reaches the port through
-  ``speecht-cli export --weights <dir>``.
+  package's ``export --weights`` (``conv_i/kernel.npy``, ``bias.npy``);
+  a directory that holds ``*.ckpt*`` files or a ``checkpoint`` file is the
+  reference's released TF Saver checkpoint, which ``compat.py`` reads as
+  JAX's ``import_reference_weights`` does. A model trained by the JAX
+  package reaches the port through ``speecht-cli export --weights <dir>``.
+- :class:`TensorSplit` cuts a state dict in the one-device layout into a
+  tensor-parallel rank's shards of the wide layers and gathers them back
+  (``models/wav2letter.py``), so checkpoints, ``export --weights`` and
+  :func:`train_state_from_jax` see full tensors.
 - :func:`train_state_from_jax` turns a JAX train state given as numpy
   (params, optax Adam ``mu``/``nu`` and ``count``, ``step``, learning
   rate) into the port's :class:`TrainState`, so the tests can start both
@@ -19,6 +25,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 
@@ -61,6 +68,48 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """Which state-dict entries a tensor-parallel rank holds a shard of.
+
+    ``dims`` maps a name to the dim cut into ``parts`` equal pieces, of
+    which this rank holds piece ``index``; ``mesh`` gathers them back over
+    its model group. The default splits nothing and both directions are
+    the identity.
+    """
+
+    dims: dict = dataclasses.field(default_factory=dict)
+    index: int = 0
+    parts: int = 1
+    mesh: object = None
+
+    def shard(self, full: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """One-device layout -> this rank's shards (views of ``full``)."""
+        return {
+            name: t.chunk(self.parts, dim=self.dims[name])[self.index]
+            if name in self.dims else t
+            for name, t in full.items()
+        }
+
+    def unshard(self, local: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This rank's shards -> the one-device layout (a collective over
+        the model group: every model rank calls it)."""
+        return {
+            name: self.mesh.all_gather(t.detach(), "model", dim=self.dims[name])
+            if name in self.dims else t
+            for name, t in local.items()
+        }
+
+    def full_shapes(self, local: dict[str, torch.Tensor]) -> dict[str, tuple]:
+        shapes = {}
+        for name, t in local.items():
+            shape = list(t.shape)
+            if name in self.dims:
+                shape[self.dims[name]] *= self.parts
+            shapes[name] = tuple(shape)
+        return shapes
+
+
 def _read_npy_tree(directory: str) -> dict:
     """``.npy`` files under ``directory`` in either layout -> flax tree."""
     tree: dict[str, dict[str, np.ndarray]] = {}
@@ -86,29 +135,38 @@ def _read_npy_tree(directory: str) -> dict:
 
 
 def load_weight_dir(directory: str, model: torch.nn.Module) -> dict:
-    """State dict for ``model`` from a ``.npy`` weight directory.
+    """State dict for ``model`` from a ``.npy`` weight directory or a TF
+    Saver checkpoint directory; a tensor-parallel model gets its shards
+    (``model.split``).
 
     Raises FileNotFoundError for a missing directory, KeyError when any
     of the model's kernels or biases is absent, ValueError when one has
-    the wrong shape.
+    the wrong shape; a TF checkpoint raises as ``compat.import_tf_checkpoint``.
     """
     if not os.path.isdir(directory):
         raise FileNotFoundError(f"weight directory {directory} does not exist")
-    state = params_from_jax(_read_npy_tree(directory))
-    expected = model.state_dict()
-    missing = sorted(set(expected) - set(state))
+    split = getattr(model, "split", TensorSplit())
+    full_shapes = split.full_shapes(model.state_dict())
+    from speecht_tpu_torch import compat
+
+    if compat.is_tf_checkpoint_dir(directory):
+        template = {name: torch.zeros(shape) for name, shape in full_shapes.items()}
+        state = compat.import_tf_checkpoint(template, directory)
+    else:
+        state = params_from_jax(_read_npy_tree(directory))
+    missing = sorted(set(full_shapes) - set(state))
     if missing:
         raise KeyError(
             f"weight directory {directory} is missing {missing[:4]}"
             + ("..." if len(missing) > 4 else "")
         )
-    for name, ref in expected.items():
-        if tuple(state[name].shape) != tuple(ref.shape):
+    for name, shape in full_shapes.items():
+        if tuple(state[name].shape) != shape:
             raise ValueError(
-                f"shape mismatch for {name}: model {tuple(ref.shape)} vs "
+                f"shape mismatch for {name}: model {shape} vs "
                 f"weights {tuple(state[name].shape)} (as [O, I, W])"
             )
-    return {name: state[name] for name in expected}
+    return split.shard({name: state[name] for name in full_shapes})
 
 
 def copy_into(targets: dict[str, torch.Tensor], values: dict, what: str):
@@ -137,6 +195,7 @@ def train_state_from_jax(
     count,
     step,
     learning_rate,
+    split: TensorSplit = TensorSplit(),
 ) -> TrainState:
     """Loads a JAX train state, given as numpy, into ``state`` in place.
 
@@ -144,11 +203,12 @@ def train_state_from_jax(
     bias [O]}}`` (``state.params``, ``state.opt_state[1].mu`` / ``.nu`` of
     the JAX package's clip -> Adam chain); ``count`` is that Adam state's
     count. ``state`` keeps its tensors (the model's parameters among
-    them) and device. Returns ``state``.
+    them) and device; a tensor-parallel ``state`` (``split``) takes its
+    shards of the full trees. Returns ``state``.
     """
-    copy_into(state.params, params_from_jax(params), "params")
-    copy_into(state.opt_state.mu, params_from_jax(mu), "mu")
-    copy_into(state.opt_state.nu, params_from_jax(nu), "nu")
+    copy_into(state.params, split.shard(params_from_jax(params)), "params")
+    copy_into(state.opt_state.mu, split.shard(params_from_jax(mu)), "mu")
+    copy_into(state.opt_state.nu, split.shard(params_from_jax(nu)), "nu")
     opt = state.opt_state
     device = opt.count.device
     return TrainState(

@@ -254,5 +254,13 @@ def test_missing_weights_is_fatal(workdir):
     ],
 )
 def test_unported_paths_raise(workdir, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CLI(_argv(workdir, "--device", "cpu", *flags)).run()
+    """The LM beam and the audio front end on several ranks are not
+    ported; the grid flags are, but one process is one rank, so alone
+    they raise the mesh's error (tests/test_torch_parallel_train.py runs
+    two ranks)."""
+    if "--language-model" in flags or "--from-audio" in flags:
+        with pytest.raises(NotImplementedError, match="on several ranks.*not ported"):
+            CLI(_argv(workdir, "--device", "cpu", *flags)).run()
+    else:
+        with pytest.raises(ValueError, match="device count 1|exceeds 1 available devices"):
+            CLI(_argv(workdir, "--device", "cpu", *flags)).run()

@@ -158,6 +158,38 @@ def test_every_module_of_the_serving_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_parallel_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.compat",
+        "speecht_tpu_torch.parallel",
+        "speecht_tpu_torch.parallel.comm",
+        "speecht_tpu_torch.parallel.mesh",
+        "speecht_tpu_torch.parallel.seq_parallel",
+        "speecht_tpu_torch.weights",
+        "speecht_tpu_torch.models.wav2letter",
+        "speecht_tpu_torch.data.reader",
+        "speecht_tpu_torch.data.pipeline",
+        "speecht_tpu_torch.execution",
+        "speecht_tpu_torch.training",
+        "speecht_tpu_torch.evaluation",
+        "speecht_tpu_torch.train.step",
+        "speecht_tpu_torch.train.checkpoint",
+        "speecht_tpu_torch.train.metrics_writer",
+        "speecht_tpu_torch.parameter_search",
+        "speecht_tpu_torch.ops.cuda_build",
+        "speecht_tpu_torch.cli",
+    ):
+        assert m in mods
+
+
+def test_the_port_does_not_import_tensorflow():
+    """The card's machine has no tensorflow: the TF checkpoint reader is
+    the port's own (``compat.py``)."""
+    for path in _sources():
+        assert "tensorflow" not in set(_imported_roots(path)), path
+
+
 def _native_sources():
     native = os.path.join(PACKAGE, "native")
     return sorted(
