@@ -183,6 +183,23 @@ drives the port's main path through its normal entry point, and fails
    one-process ``evaluate`` restores the DP run's checkpoint; ms/step and
    ms/batch a path, and each collective's ms at the paths' shapes
    (gloo's host-staged times, not NCCL's).
+3k. ``evaluate --language-model`` and ``--from-audio`` on two ranks
+   sharing the card, started as in 3j: on the phase-3 corpus with the
+   phase-3d LM and the phase-3 weights calibrated as in 3d but to keep
+   75-85% of the frames (so the beam decodes dozens of letters a row),
+   the host beam, ``--device-beam`` and
+   ``--device-beam --rescore 8`` (4 batches each) on ``--data-parallel 2``
+   and ``--model-parallel 2``; on phase 3f's 64 test FLACs ``--from-audio``
+   greedy (the phase-3 weights) and with ``--language-model --device-beam``
+   (the calibrated weights) on ``--data-parallel 2``. Full width, B=64 global, float32 with TF32
+   off on both sides (TP sums its wide layers in another order, so bf16
+   would round them otherwise); one process runs each path on the same
+   rows. Every decoded token and statistic equal to one process's, each
+   batch's loss within ``PARALLEL_DECODE_LOSS_RTOL``, rank 0 alone
+   printing; each rank's ``ctc_alpha`` and ``beam_device`` launches (one a
+   batch, ``beam_device`` on the device-beam paths alone) go into
+   ``launches_by_path``; ms a batch a path beside one process's and each
+   rank's search ms a batch (host clock, gloo on one card).
 4. One batch through the eval step on the card and on the CPU, float32
    compute with TF32 off, loss and decoded tokens compared.
 4b. One train step on the card and on the CPU, float32 with TF32 off,
@@ -212,7 +229,7 @@ drives the port's main path through its normal entry point, and fails
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
-``--rank-worker SPEC`` it is one rank of phase 3j (started by the phase
+``--rank-worker SPEC`` it is one rank of phase 3j or 3k (started by the phase
 itself through ``torchrun``), and prints no result line.
 """
 
@@ -1879,17 +1896,19 @@ def kept_share(lengths, seq_lengths):
     return float(torch.as_tensor(lengths).sum() / frames)
 
 
-def lm_weights_for(work, data_dir, weights, device=torch.device("cuda")):
+def lm_weights_for(work, data_dir, weights, device=torch.device("cuda"),
+                   keep_aim=LM_KEEP_AIM, keep_range=LM_KEEP_RANGE, name="lm_weights"):
     """The phase-3 weights made to emit like a trained CTC model, written
-    as a new weight directory. The random weights' logits barely move
-    from frame to frame (the biases dominate them: a per-frame spread of
-    about 0.006, below bfloat16's spacing), so no blank bias alone makes
-    the collapse keep a share of the frames. So conv_0's filters take a
-    gain (as ``bench.py`` scales its input) that spreads the logits by
-    about LM_LOGIT_STD, measured on one batch; then the last layer's blank
-    bias is moved until the collapse at 0.999 keeps 20-30% of that
-    batch's frames (bisection; the share falls as the bias rises).
-    Returns (the directory, the share kept)."""
+    as a new weight directory ``<work>/<name>``. The random weights'
+    logits barely move from frame to frame (the biases dominate them: a
+    per-frame spread of about 0.006, below bfloat16's spacing), so no
+    blank bias alone makes the collapse keep a share of the frames. So
+    conv_0's filters take a gain (as ``bench.py`` scales its input) that
+    spreads the logits by about LM_LOGIT_STD, measured on one batch; then
+    the last layer's blank bias is moved until the collapse at 0.999
+    keeps a share within ``keep_aim`` (20-30% by default) of that batch's
+    frames (bisection; the share falls as the bias rises). Returns (the
+    directory, the share kept)."""
     import shutil
 
     from speecht_tpu_torch import vocabulary
@@ -1909,7 +1928,7 @@ def lm_weights_for(work, data_dir, weights, device=torch.device("cuda")):
 
     spread = logit_spread(lm_model(weights, device))
     gain = np.float32(LM_LOGIT_STD / spread)
-    out = os.path.join(work, "lm_weights")
+    out = os.path.join(work, name)
     shutil.copytree(weights, out)
     first = os.path.join(out, "convolution_layer_0", "filters:0.npy")
     np.save(first, np.load(first) * gain)
@@ -1927,23 +1946,23 @@ def lm_weights_for(work, data_dir, weights, device=torch.device("cuda")):
         return kept_share(lengths.cpu(), batch.seq_lengths)
 
     lo, hi = -8.0, 8.0
-    while share(lo) < LM_KEEP_AIM[1] and lo > -1e4:
+    while share(lo) < keep_aim[1] and lo > -1e4:
         lo *= 2
-    while share(hi) > LM_KEEP_AIM[0] and hi < 1e4:
+    while share(hi) > keep_aim[0] and hi < 1e4:
         hi *= 2
     raise_by = (lo + hi) / 2
     kept = share(raise_by)
     for _ in range(24):
-        if LM_KEEP_AIM[0] <= kept <= LM_KEEP_AIM[1]:
+        if keep_aim[0] <= kept <= keep_aim[1]:
             break
-        if kept > LM_KEEP_AIM[1]:
+        if kept > keep_aim[1]:
             lo = raise_by
         else:
             hi = raise_by
         raise_by = (lo + hi) / 2
         kept = share(raise_by)
     decoder.close()
-    check(LM_KEEP_RANGE[0] <= kept <= LM_KEEP_RANGE[1],
+    check(keep_range[0] <= kept <= keep_range[1],
           f"LM weights: the blank collapse keeps {kept!r} of the frames")
     last = os.path.join(
         out, f"convolution_layer_{len(model.layer_names) - 1}", "bias:0.npy"
@@ -1951,7 +1970,7 @@ def lm_weights_for(work, data_dir, weights, device=torch.device("cuda")):
     values = np.load(last)
     values[vocabulary.BLANK_ID] += np.float32(raise_by)
     np.save(last, values)
-    print(f"LM path: the logits spread {spread!r} from frame to frame; with "
+    print(f"LM path ({name}): the logits spread {spread!r} from frame to frame; with "
           f"conv_0's filters times {float(gain)!r} they spread {new_spread!r}; "
           f"blank bias raised by {raise_by!r}: the collapse at 0.999 keeps "
           f"{kept!r} of one batch's frames (B={MAIN_BATCH})")
@@ -3009,20 +3028,24 @@ PARALLEL_TIMEOUT_S = 600
 
 @contextlib.contextmanager
 def seeded_reader():
-    """One process reads the cache in the order the ranks share (seed 0),
-    so that its step k holds the rows of the ranks' step k together."""
+    """One process reads the cache and the FLACs in the order the ranks
+    share (seed 0), so that its step k holds the rows of the ranks' step k
+    together."""
     from speecht_tpu_torch.data.reader import SpeechCorpusReader
 
-    load = SpeechCorpusReader.load_samples
+    saved = {}
+    for name in ("load_samples", "load_raw_samples"):
+        saved[name] = load = getattr(SpeechCorpusReader, name)
 
-    def seeded(self, *args, seed=None, **kwargs):
-        return load(self, *args, seed=0 if seed is None else seed, **kwargs)
+        def seeded(self, *args, seed=None, _load=load, **kwargs):
+            return _load(self, *args, seed=0 if seed is None else seed, **kwargs)
 
-    SpeechCorpusReader.load_samples = seeded
+        setattr(SpeechCorpusReader, name, seeded)
     try:
         yield
     finally:
-        SpeechCorpusReader.load_samples = load
+        for name, load in saved.items():
+            setattr(SpeechCorpusReader, name, load)
 
 
 @contextlib.contextmanager
@@ -3057,27 +3080,51 @@ def step_losses():
 
 @contextlib.contextmanager
 def eval_rows():
-    """Every row evaluate tracks, as {expected text: decoded ids}, and the
-    host times of each batch's tracking (``batch_marks``)."""
+    """Every row evaluate tracks, as {expected text: decoded ids}, the
+    host times of each batch's tracking (``batch_marks``), each batch's
+    loss unrounded, and the host ms of each search of the LM decoder
+    (``decode_emissions``: the host beam, or the device beam and its
+    readback)."""
     from speecht_tpu_torch import evaluation, vocabulary
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder
 
-    rec = {"rows": {}, "marks": []}
+    rec = {"rows": {}, "marks": [], "losses": [], "search_ms": []}
     track = evaluation.Evaluation._track_batch
+    results = evaluation.Evaluation._result_iterator
+    search = BeamSearchDecoder.decode_emissions
 
     def recorded(stats, batch, decoded, dec_lengths, verbose=False):
         rec["marks"].append(time.perf_counter())
+        lengths = getattr(batch, "seq_lengths", None)
+        lengths = batch.num_samples if lengths is None else lengths
         for i in range(decoded.shape[0]):
-            if batch.seq_lengths[i]:
+            if lengths[i]:
                 expected = vocabulary.ids_to_sentence(
                     batch.labels[i, : batch.label_lengths[i]])
                 rec["rows"][expected] = [int(x) for x in decoded[i, : dec_lengths[i]]]
         return track(stats, batch, decoded, dec_lengths, verbose)
 
+    def losses(self, eval_step, loader):
+        for item in results(self, eval_step, loader):
+            rec["losses"].append(float(item[1]))
+            yield item
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return search(*args, **kwargs)
+        finally:
+            rec["search_ms"].append((time.perf_counter() - t0) * 1e3)
+
     evaluation.Evaluation._track_batch = staticmethod(recorded)
+    evaluation.Evaluation._result_iterator = losses
+    BeamSearchDecoder.decode_emissions = timed
     try:
         yield rec
     finally:
         evaluation.Evaluation._track_batch = staticmethod(track)
+        evaluation.Evaluation._result_iterator = results
+        BeamSearchDecoder.decode_emissions = search
 
 
 def stats_fields(stats):
@@ -3189,14 +3236,18 @@ def check_sp_logits(path, data_dir, weights):
 
 
 def rank_worker(spec_path: str) -> int:
-    """One rank of phase 3j, started by ``torchrun``: each path through
-    ``CLI([...]).run()``, the kernels' launch counts set to 0 just before
-    and read just after, then the collectives' times; the results go to a
-    JSON file of this rank."""
+    """One rank of phase 3j or 3k, started by ``torchrun``: each path
+    through ``CLI([...]).run()``, the kernels' launch counts set to 0 just
+    before and read just after; for phase 3j then the collectives' times
+    and the SP logits. The results go to a JSON file of this rank. With
+    ``ieee_float32`` in the spec, TF32 is off in this process."""
     from speecht_tpu_torch.ops import beam_device_cuda, conv0_cuda, ctc_cuda
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec.get("ieee_float32"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     kernels = (list(ctc_cuda.KERNELS) + list(conv0_cuda.KERNELS)
                + list(beam_device_cuda.KERNELS))
     rank = int(os.environ["RANK"])
@@ -3218,26 +3269,32 @@ def rank_worker(spec_path: str) -> int:
                 ("global step", "validation average loss", "seq-parallel", "Restored",
                  "Done", "LED:", "precise:"))][-12:],
             "step_marks": steps["marks"], "losses": steps["losses"],
-            "batch_marks": rows["marks"],
+            "batch_marks": rows["marks"], "batch_losses": rows["losses"],
+            "search_ms": rows["search_ms"],
+            # what evaluate prints on rank 0 alone
+            "prints": sum(ln.startswith(("expected: ", "Global statistics", "validation",
+                                         "from-audio:", "device beam", "device LM"))
+                          for ln in stdout.splitlines()),
         }
         if argv[0] == "evaluate":
             entry["stats"] = stats_fields(stats)
             entry["rows"] = rows["rows"]
         out["paths"][name] = entry
-    out["collectives_ms"] = collective_times(spec["n_params"])
-    logits = sp_logits(spec["data_dir"], spec["weights"])
-    if rank == 0:
-        np.save(spec["sp_logits"], logits)
+    if "n_params" in spec:  # phase 3j
+        out["collectives_ms"] = collective_times(spec["n_params"])
+        logits = sp_logits(spec["data_dir"], spec["weights"])
+        if rank == 0:
+            np.save(spec["sp_logits"], logits)
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(out, f)
     return 0
 
 
-def launch_ranks(spec, work):
+def launch_ranks(spec, work, phase="3j"):
     """``torchrun --standalone --nproc-per-node 2 chip_smoke.py --rank-worker``,
     the two ranks sharing the card (SPEECHT_SHARE_CARD=1); its whole process
     group is killed if it outlives the time limit."""
-    spec_path = os.path.join(work, "3j-spec.json")
+    spec_path = os.path.join(work, f"{phase}-spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3252,10 +3309,10 @@ def launch_ranks(spec, work):
         os.killpg(proc.pid, 9)
         output, _ = proc.communicate()
         print(output[-6000:])
-        raise SmokeFailure(f"phase 3j: the ranks outlived {PARALLEL_TIMEOUT_S} s")
+        raise SmokeFailure(f"phase {phase}: the ranks outlived {PARALLEL_TIMEOUT_S} s")
     if proc.returncode != 0:
         print(output[-6000:])
-        raise SmokeFailure(f"phase 3j: torchrun exited {proc.returncode}")
+        raise SmokeFailure(f"phase {phase}: torchrun exited {proc.returncode}")
     return [json.load(open(spec["out"].format(rank=r))) for r in range(2)]
 
 
@@ -3418,6 +3475,136 @@ def parallel_path(work, data_dir, weights, kernels, card):
     print(f"parallel: one process restored the DP run's step-{restored} checkpoint, "
           f"loss {losses[0]!r}; the ranks' run {ranks_s:.1f} s with start-up; phase 3j "
           f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -- phase 3k: evaluate with the LM and from audio on two ranks ---------------
+
+# the LM forms and the grids of phase 3k; the from-audio paths run on the
+# data-parallel grid
+PARALLEL_DECODE_FORMS = (("host beam", []), ("--device-beam", ["--device-beam"]),
+                         ("--device-beam --rescore 8", ["--device-beam", "--rescore", "8"]))
+PARALLEL_DECODE_GRIDS = (("--data-parallel 2", ["--data-parallel", "2"]),
+                         ("--model-parallel 2", ["--model-parallel", "2"]))
+# float32 with TF32 off on both sides: the two ranks sum each batch's loss
+# over another split of its rows (DP) or each wide layer over another
+# split of its channels (TP), a few float32 roundings apart
+PARALLEL_DECODE_LOSS_RTOL = 1e-5
+# phase 3k's own LM weights: the collapse keeps most frames, so the beam
+# decodes dozens of letters a row (the phase-3d weights keep a quarter,
+# where the beam decodes almost nothing) and the tokens compared are many
+PARALLEL_DECODE_KEEP_RANGE, PARALLEL_DECODE_KEEP_AIM = (0.6, 0.95), (0.75, 0.85)
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """TF32 off for cuDNN's convolutions and float32 matmuls, restored
+    after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def parallel_decode_path(work, data_dir, weights, lm_dir, audio_dir, kernels, card):
+    """Phase 3k: ``evaluate --language-model`` (host beam, ``--device-beam``,
+    ``--device-beam --rescore 8``) on the DP and TP grids, and ``evaluate
+    --from-audio`` (greedy, and with the LM on the device beam) on the DP
+    grid, two ranks sharing the card, each against one process on the
+    same rows: float32 with TF32 off on both sides. The LM paths take
+    weights calibrated as phase 3d's, to keep ``PARALLEL_DECODE_KEEP_AIM``
+    of the frames. Returns each rank's kernel launches by path."""
+    t_phase = time.perf_counter()
+    lm_weights, _kept = lm_weights_for(
+        work, data_dir, weights, keep_aim=PARALLEL_DECODE_KEEP_AIM,
+        keep_range=PARALLEL_DECODE_KEEP_RANGE, name="lm_weights_3k")
+    common = ["--train-dir", os.path.join(work, "train3k"), "--log-dir",
+              os.path.join(work, "log3k"), "--batch-size", str(MAIN_BATCH),
+              "--compute-dtype", "float32", "--no-save", "--test"]
+    lm = ["--language-model", lm_dir]
+    # (the one-process run's key, its flags, batches)
+    references = {
+        **{f"evaluate --language-model ({form})":
+           (["--data-dir", data_dir, "--reference-weights", lm_weights, *lm,
+             "--step-count", str(MAIN_STEPS), *flags], MAIN_STEPS)
+           for form, flags in PARALLEL_DECODE_FORMS},
+        "evaluate --from-audio": (["--data-dir", audio_dir, "--reference-weights",
+                                   weights, "--from-audio"], 1),
+        "evaluate --from-audio --language-model --device-beam": (
+            ["--data-dir", audio_dir, "--reference-weights", lm_weights, "--from-audio",
+             *lm, "--device-beam"], 1),
+    }
+    paths = [(f"{ref} {grid}", ref, grid_flags) for ref in references
+             for grid, grid_flags in PARALLEL_DECODE_GRIDS
+             if "--from-audio" not in ref or "--data-parallel" in grid]
+    spec = {"paths": [[name, ["evaluate", *common, *references[ref][0], *grid]]
+                      for name, ref, grid in paths],
+            "out": os.path.join(work, "3k-rank{rank}.json"), "ieee_float32": True}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch_ranks(spec, work, phase="3k")
+    ranks_s = time.perf_counter() - t0
+
+    # one process on the same rows
+    refs = {}
+    with ieee_float32(), seeded_reader():
+        for ref, (flags, steps) in references.items():
+            with eval_rows() as rows:
+                t0 = time.perf_counter()
+                stats, _out = run_cli(["evaluate", *common, *flags])
+                wall = time.perf_counter() - t0
+            refs[ref] = {"stats": stats_fields(stats), "wall_s": wall, **rows}
+            check(len(rows["losses"]) == steps and stats.decodings_counter == MAIN_BATCH * steps,
+                  f"parallel decode: one process's {ref} ran {len(rows['losses'])} batches")
+
+    def ms_a_batch(marks, wall_s, steps):
+        return batch_period_ms(marks) if steps > 2 else wall_s * 1e3 / steps
+
+    launches = {}
+    for name, ref, _grid in paths:
+        want, steps = refs[ref], references[ref][1]
+        per_rank = [r["paths"][name] for r in ranks]
+        device_beam = "--device-beam" in name
+        launches[name] = [p["launches"] for p in per_rank]
+        for r, p in enumerate(per_rank):
+            got = p["launches"]
+            check(got["ctc_alpha"] == steps and got["beam_device"] == (steps if device_beam else 0)
+                  and got["ctc_beta"] == 0 and got["conv0"] == 0,
+                  f"parallel decode {name}: rank {r} launched {got} for {steps} batches")
+            share, same, total, lev_l, lev_w = rows_against(name, p["rows"], want["rows"])
+            # the calibration aims at the cached features; on the FLACs'
+            # features the LM weights may decode little
+            check(total >= len(want["rows"]) or "--from-audio --language-model" in name,
+                  f"parallel decode {name}: {total} tokens in {len(want['rows'])} rows")
+            rel = [abs(a - b) / abs(b) for a, b in zip(p["batch_losses"], want["losses"])]
+            print(f"parallel decode {name}: rank {r}: {p['stats']}; decoded tokens equal "
+                  f"{same}/{total} (the decodes' own edit distance {lev_l} letters, {lev_w} "
+                  f"words); batch losses {p['batch_losses']!r} rel diff {rel!r} (tolerance "
+                  f"{PARALLEL_DECODE_LOSS_RTOL}); search ms a batch (host clock) "
+                  f"{p['search_ms']!r}; kernel launches {got}")
+            check(p["rows"] == want["rows"], f"parallel decode {name}: rank {r}'s decodes differ")
+            check({k: v for k, v in p["stats"].items() if k not in ("ler", "wer")}
+                  == {k: v for k, v in want["stats"].items() if k not in ("ler", "wer")}
+                  and all(math.isclose(p["stats"][k], want["stats"][k], rel_tol=1e-12)
+                          for k in ("ler", "wer")),
+                  f"parallel decode {name}: rank {r}'s statistics differ")
+            check(len(rel) == steps and len(p["batch_losses"]) == steps
+                  and max(rel) <= PARALLEL_DECODE_LOSS_RTOL,
+                  f"parallel decode {name}: rank {r}'s losses disagree")
+        check(per_rank[0]["prints"] > 0 and per_rank[1]["prints"] == 0,
+              f"parallel decode {name}: prints on rank 0 {per_rank[0]['prints']}, "
+              f"rank 1 {per_rank[1]['prints']}")
+        rank0 = per_rank[0]
+        print(f"parallel decode {name}: "
+              f"{ms_a_batch(rank0['batch_marks'], rank0['wall_s'], steps)!r} ms a batch on "
+              f"rank 0 (B={MAIN_BATCH} global, {steps} batches), one process "
+              f"{ms_a_batch(want['marks'], want['wall_s'], steps)!r} (search "
+              f"{want['search_ms']!r} ms a batch); "
+              f"gloo on one shared card, float32, TF32 off; on {card}")
+    print(f"parallel decode: the ranks' run {ranks_s:.1f} s with start-up; phase 3k wall "
+          f"time {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3788,7 +3975,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 3j, under torchrun
+    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 3j or 3k, under torchrun
         return rank_worker(sys.argv[2])
     import concurrent.futures
 
@@ -3922,6 +4109,9 @@ def main() -> int:
         record_runs["export (loaded program)"] = export_launches
         # 3j. parallel/: train and evaluate on two ranks sharing the card
         parallel_runs = parallel_path(work, data_dir, weights, kernels, card)
+        # 3k. evaluate --language-model and --from-audio on two ranks
+        decode_runs = parallel_decode_path(work, data_dir, weights, lm_dir, host_dir,
+                                           kernels, card)
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
 
@@ -3973,6 +4163,9 @@ def main() -> int:
     }
     alpha_entry["launches_by_path"].update(
         {path: n["ctc_alpha"] for path, n in beam_runs.items()})
+    for path, per_rank in decode_runs.items():
+        for r, n in enumerate(per_rank):
+            alpha_entry["launches_by_path"][f"{path} (rank {r})"] = n["ctc_alpha"]
     beam_entry = kernel_entry(
         "beam_device", "speecht_tpu_torch/csrc/beam_device.cu",
         "speecht_tpu/ops/beam_device.py:1228 (XLA lax.scan, no Pallas kernel)",
@@ -3981,6 +4174,8 @@ def main() -> int:
     beam_entry["launches_by_path"] = {
         "evaluate --language-model": lm_launches["beam_device"],
         **{path: n["beam_device"] for path, n in beam_runs.items()},
+        **{f"{path} (rank {r})": n["beam_device"]
+           for path, per_rank in decode_runs.items() for r, n in enumerate(per_rank)},
     }
     serving_paths = ("record", "record --device-beam", "record --streaming",
                      "record --language-model", "record --device-beam (KenLM binary)",

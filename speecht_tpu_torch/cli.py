@@ -23,10 +23,9 @@ weights (``--weights``) and the serving artifact (``--stablehlo``, a
 several processes (``torchrun --nproc-per-node N -m speecht_tpu_torch
 train --data-parallel N ...``), ``train`` and ``evaluate`` run on a grid
 of ranks (``--data-parallel``, ``--model-parallel``, ``--seq-parallel``;
-``parallel/``), and ``run`` prints a ``distributed:`` line for each rank
-with its backend and device. Paths of the JAX package that the port does
-not have yet raise an error that names them; none is ignored:
-``--language-model`` and ``--from-audio`` on several ranks.
+``parallel/``), ``evaluate --language-model`` and ``--from-audio`` too,
+and ``run`` prints a ``distributed:`` line for each rank with its backend
+and device.
 
 ``main`` prints a RuntimeError, a FileNotFoundError or a ValueError (a
 flag's value refused, such as an odd ``--export-frames``) as one line and
@@ -407,31 +406,6 @@ class CLI:
             self._parsed = parsed
         return self._parsed
 
-    def _check_ported(self):
-        """Refuses, naming it, a combination the port does not run yet:
-        the LM beam and the audio front end on several ranks."""
-        from speecht_tpu_torch.parallel import comm
-
-        flags = self.parsed
-        several = (
-            comm.world_size() > 1
-            or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
-            or flags.data_parallel > 1
-            or flags.model_parallel > 1
-            or getattr(flags, "seq_parallel", 0) > 1
-        )
-        unported = []
-        lm = getattr(flags, "lm", None)
-        if several and lm is not None and lm.language_model:
-            unported.append(f"{flags.command} --language-model on several ranks")
-        if several and getattr(flags, "from_audio", False):
-            unported.append(f"{flags.command} --from-audio on several ranks")
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: this path is not ported to "
-                "speecht_tpu_torch yet (use `speecht-cli` for it)"
-            )
-
     def _ensure_directories(self):
         for d in (
             self.parsed.train_dir,
@@ -445,7 +419,6 @@ class CLI:
         if not self.parsed.command:
             self.parser.print_help()
             return None
-        self._check_ported()
         if self.parsed.command != "preprocess":
             # several processes: join the group torchrun's environment
             # names (one process: nothing happens)
@@ -484,9 +457,9 @@ def main(argv=None):
     try:
         CLI(argv).run()
     except (RuntimeError, FileNotFoundError, ValueError) as e:
-        # user-actionable failures (no card, missing weights, a path not
-        # ported yet, a flag's value refused) print one line; library
-        # callers use CLI(argv).run()
+        # user-actionable failures (no card, missing weights, a flag's
+        # value refused) print one line; library callers use
+        # CLI(argv).run()
         print(f"error: {e}", file=sys.stderr)
         sys.exit(1)
 

@@ -9,7 +9,7 @@ Counterpart of ``speecht_tpu/data/pipeline.py``:
   ``parallel/mesh.py::sync_bucket_dims``); :func:`single_batch`
   is ``record``'s batch of one without labels.
   :func:`build_audio_batch` does the same for raw audio (``--from-audio``),
-  in samples.
+  in samples, synced alike.
 - :func:`batch_iterator` groups a sample generator into such batches,
   optionally by length (one process only).
 - :class:`PrefetchLoader` builds batches on a host thread. Features are
@@ -119,7 +119,8 @@ def build_audio_batch(
 
     Sample counts pad up to ``sample_bucket`` (the feature hop times the
     frame bucket by default). The label width follows the frame bucket the
-    samples imply (hop 160) as in :func:`build_batch`.
+    samples imply (hop 160), and both widths are the maxima over the
+    ranks, as in :func:`build_batch`.
     """
     n = len(samples)
     num_samples = np.array([len(s[0]) for s in samples], dtype=np.int32)
@@ -129,6 +130,8 @@ def build_audio_batch(
         L = max(S // 160 // 4, round_up(int(label_lengths.max()), 32), 32)
     else:
         L = round_up(max(int(label_lengths.max()), 1), label_bucket)
+    # multi-process: every rank pads this step's batch alike
+    S, L = sync_bucket_dims(S, L)
     B = max(n, pad_to_batch)
 
     audio = np.zeros((B, S), dtype=np.float32)

@@ -14,7 +14,8 @@ Counterpart of ``speecht_tpu/data/reader.py``:
 - :meth:`load_samples`: the cache, shuffled, through the native npz reader
   (``np.load`` only for files of another layout), one equal shard a data
   rank in a multi-process run (:func:`_equal_shard`), and
-  :meth:`load_raw_samples`: the FLACs themselves (``--from-audio``).
+  :meth:`load_raw_samples`: the FLACs themselves (``--from-audio``),
+  sharded alike.
 """
 
 from __future__ import annotations
@@ -363,14 +364,21 @@ class SpeechCorpusReader:
         limit_count: int = 0,
         seed: int | None = None,
         sample_rate: int = native.DEFAULT_SR,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         """Yield (raw audio float32 at ``sample_rate``, transcript int32)
-        from the FLACs, shuffled as :meth:`load_samples` shuffles."""
+        from the FLACs, shuffled, cut and sharded as :meth:`load_samples`
+        does it."""
         files = sorted(self._audio_files(directory))
+        if shard_count > 1 and seed is None:
+            seed = 0  # every rank must agree on the permutation
         rng = random.Random(seed)
         rng.shuffle(files)
         if limit_count:
             files = files[:limit_count]
+        if shard_count > 1:
+            files = _equal_shard(files, shard_index, shard_count)
         transcript_dict = self._transcript_dict
         while True:
             for audio_file in files:

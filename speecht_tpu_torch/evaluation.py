@@ -19,14 +19,16 @@ per-sample ``expected:``/``decoded:`` lines with LED/LER/WED/WER, one
 Unless ``--no-save``, ``eval_loss`` of the first batch goes to a
 TensorBoard event file.
 
-Several processes (``torchrun``) evaluate the cached corpus greedily on a
-grid of ranks: each data rank decodes its shard (``--data-parallel``;
+Several processes (``torchrun``) evaluate on a grid of ranks: each data
+rank reads its shard of the cache or of the FLACs (``--data-parallel``;
 ``--model-parallel`` splits the wide layers) or, with ``--seq-parallel
 N``, the conv stack is sharded over time (``parallel/seq_parallel.py``;
-not with ``--from-audio`` or ``--language-model``). The loss is averaged
-over the data group, and the decodes, labels and lengths of every batch
-are gathered to every rank, which all track the global statistics; rank
-0 prints and saves.
+cached and greedy only). The loss is averaged over the data group. With
+``--language-model`` the ranks share the search, the ranks of a model
+group splitting their common rows (``ops/beam.py``), and the decoder
+returns every row's decode. The labels and lengths of every batch, and
+the greedy decodes, are gathered to every rank, which all track the
+global statistics; rank 0 prints and saves.
 
 Weights come from ``--reference-weights`` (a ``.npy`` directory or the
 reference's TF checkpoint, see ``weights.py``) or else from the latest of
@@ -98,10 +100,11 @@ class Evaluation(DatasetExecutor):
                 and resample_mod.is_rational(native_sr, DEFAULT_SR)
             ):
                 self._wire_sr = native_sr
-                print(
-                    f"from-audio: decoding at native {native_sr} Hz; "
-                    f"resampling to {DEFAULT_SR} Hz on device"
-                )
+                if self.mesh.primary:
+                    print(
+                        f"from-audio: decoding at native {native_sr} Hz; "
+                        f"resampling to {DEFAULT_SR} Hz on device"
+                    )
             else:
                 self._wire_sr = DEFAULT_SR
         return self._wire_sr
@@ -120,6 +123,7 @@ class Evaluation(DatasetExecutor):
                 loop_infinitely=False,
                 limit_count=limit_count,
                 sample_rate=self.wire_sr,
+                **self.shard_kwargs,
             )
         return self.reader.load_samples(
             self.flags.dataset,
@@ -150,7 +154,7 @@ class Evaluation(DatasetExecutor):
         )
         return PrefetchLoader(
             lambda: self.create_sample_generator(self.get_loader_limit_count()),
-            batch_size=self.flags.batch_size,
+            batch_size=self.local_batch_size(),
             device=self.device,
             time_bucket=sample_bucket,
             max_steps=self.get_max_steps(),
@@ -184,6 +188,7 @@ class Evaluation(DatasetExecutor):
                     self.flags.feature_type if self.from_audio else None
                 ),
                 wire_sr=self.wire_sr if self.from_audio else None,
+                mesh=self.mesh,
             )
             return self._beam.eval_step
         if self.from_audio:
@@ -194,6 +199,7 @@ class Evaluation(DatasetExecutor):
                 features_device.make_front_end(
                     self.flags.feature_type, wire_sr=self.wire_sr
                 ),
+                self.mesh,
             )
         if self.seq_parallel > 1:
             from speecht_tpu_torch.parallel.seq_parallel import make_sp_eval_step
@@ -254,9 +260,10 @@ class Evaluation(DatasetExecutor):
         results = self._result_iterator(eval_step, self.create_loader())
         for step, (batch, avg_loss, decoded, dec_lengths) in enumerate(results):
             if comm.world_size() > 1:
-                batch, decoded, dec_lengths = self._global_rows(
-                    batch, decoded, dec_lengths
-                )
+                batch = self._global_batch(batch)
+                if self._beam is None:  # the beam's decodes are global
+                    decoded = pmesh.host_global(decoded, self.mesh)
+                    dec_lengths = pmesh.host_global(dec_lengths, self.mesh)
             self._track_batch(stats, batch, decoded, dec_lengths, verbose=primary)
             if primary:
                 print(
@@ -273,16 +280,16 @@ class Evaluation(DatasetExecutor):
             writer.close()
         return stats
 
-    def _global_rows(self, batch, decoded, dec_lengths):
-        """Every data rank's rows of a batch's labels, lengths and decodes,
-        on every rank (a collective), so all ranks track the global
-        statistics."""
-        rows = lambda x: pmesh.host_global(x, self.mesh)  # noqa: E731
-        batch = dataclasses.replace(
-            batch, seq_lengths=rows(batch.seq_lengths), labels=rows(batch.labels),
-            label_lengths=rows(batch.label_lengths),
-        )
-        return batch, rows(decoded), rows(dec_lengths)
+    def _global_batch(self, batch):
+        """Every data rank's rows of a batch's labels and lengths (the
+        padding-row marks: ``seq_lengths``, an AudioBatch's
+        ``num_samples``), on every rank (a collective), so all ranks track
+        the global statistics."""
+        lengths = "num_samples" if hasattr(batch, "num_samples") else "seq_lengths"
+        return dataclasses.replace(batch, **{
+            name: pmesh.host_global(getattr(batch, name), self.mesh)
+            for name in (lengths, "labels", "label_lengths")
+        })
 
     @staticmethod
     def _track_batch(stats: EvalStatistics, batch, decoded, dec_lengths,

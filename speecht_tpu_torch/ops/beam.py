@@ -21,6 +21,16 @@ before batch N's search runs, so the card computes while the host
 searches. The three fusion weights are plain call arguments, so
 ``search`` can re-decode the same emissions under each candidate's
 weights.
+
+On a grid of ranks (``evaluate`` under ``torchrun``, a ``mesh``) the
+device part's loss is the data group's average, and the ranks share the
+search: each takes its contiguous share of its data block
+(``parallel/mesh.py::beam_rows``; the ranks of a model group hold the
+same rows, and split them), searches it (the host beam or rescoring on
+its own rows, the device beam on its own slice of the log-probs on its
+own card), pads the decodes to the batch's logit width and gathers every
+rank's (``gather_beam_rows``), so every rank returns the global batch's
+decodes.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from speecht_tpu_torch import native, vocabulary
 from speecht_tpu_torch.execution import finish_readback, start_readback
 from speecht_tpu_torch.models.wav2letter import output_length
 from speecht_tpu_torch.ops import decode
+from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.train import step as tstep
 
 
@@ -95,10 +106,12 @@ class BeamSearchDecoder:
 
     ``lm_config`` is a :class:`LanguageModelConfig`. The host beam and the
     rescoring run on a pool of ``num_threads`` threads (default
-    ``min(32, os.cpu_count())``); :meth:`close` shuts it down. With
-    ``feature_type`` the batches are raw-audio ``AudioBatch``es
-    (``evaluate --from-audio``): the device front end for that feature
-    type (audio at ``wire_sr``) runs ahead of the model.
+    ``min(32, os.cpu_count() // ranks on this host)``); :meth:`close`
+    shuts it down. With ``feature_type`` the batches are raw-audio
+    ``AudioBatch``es (``evaluate --from-audio``): the device front end for
+    that feature type (audio at ``wire_sr``) runs ahead of the model.
+    ``mesh`` (``parallel/mesh.py``) is the grid of ranks that share the
+    search; without one the decoder is one process's.
 
     ``lm_config.device_beam`` runs the search on the model's device. A
     beam width the kernel cannot take (``beam_device_cuda.shape_limits``:
@@ -109,7 +122,8 @@ class BeamSearchDecoder:
     binary's size or 1.2x an ARPA's, or whose tables are). Under
     ``--rescore N`` the width fall-back is the host beam without the
     rescoring (the rescoring puts no LM on the device, so the budget does
-    not apply to it).
+    not apply to it). The messages are rank 0's: every rank takes the same
+    decision, from the flags and the LM file alone.
     """
 
     # the emission pruning of every search: only a frame's top-k chars
@@ -119,7 +133,9 @@ class BeamSearchDecoder:
     def __init__(self, model, lm_config: LanguageModelConfig,
                  num_threads: int | None = None,
                  feature_type: str | None = None,
-                 wire_sr: int | None = None):
+                 wire_sr: int | None = None,
+                 mesh: pmesh.Mesh | None = None):
+        self.mesh = mesh or pmesh.Mesh()
         self.lm_config = lm_config
         self.blank_threshold = lm_config.blank_threshold
         self.device_beam = bool(lm_config.device_beam)
@@ -133,15 +149,19 @@ class BeamSearchDecoder:
         if not self.device_beam and lm_config.language_model:
             model_path, vocab = find_lm_files(lm_config.language_model)
             self.lm = native.NGramLM(model_path, vocab)
-        self._loss_fn = tstep.make_loss_fn(model)
+        self._loss_fn = tstep.make_loss_fn(model, self.mesh)
         self._audio_loss_fn = None
         if feature_type is not None:
             from speecht_tpu_torch.data import features_device
 
             self._audio_loss_fn = tstep.make_audio_loss_fn(
-                model, features_device.make_front_end(feature_type, wire_sr)
+                model, features_device.make_front_end(feature_type, wire_sr),
+                self.mesh,
             )
-        self.num_threads = num_threads or min(32, os.cpu_count() or 8)
+        # ranks on one host share its cores
+        self.num_threads = num_threads or min(
+            32, max(1, (os.cpu_count() or 8) // pmesh.local_world_size())
+        )
         self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
 
     def _make_device_beam(self, device) -> None:
@@ -159,7 +179,7 @@ class BeamSearchDecoder:
         limits = beam_device_cuda.shape_limits(cfg.beam_width, K, H)
         if limits:
             dropped = f" without --rescore {self.rescore_n}" if self.rescore_n else ""
-            print(
+            self._say(
                 f"device beam kernel: {'; '.join(limits)}; falling back to "
                 f"the host beam{dropped}"
             )
@@ -190,7 +210,7 @@ class BeamSearchDecoder:
                 "for a device-accelerated path with large LMs)"
             )
             if est_gb > budget_gb:
-                print(
+                self._say(
                     f"device LM tables would need ~{est_gb:.1f} GiB "
                     f"HBM (> --device-lm-hbm-gb {budget_gb:.1f}); " + fallback
                 )
@@ -204,7 +224,7 @@ class BeamSearchDecoder:
                     device=device,
                 )
             except beam_device.DeviceLMBudgetError as e:
-                print(
+                self._say(
                     f"device LM tables need "
                     f"{e.bytes_needed / (1 << 30):.1f} GiB HBM "
                     f"(> --device-lm-hbm-gb {budget_gb:.1f}); " + fallback
@@ -214,6 +234,10 @@ class BeamSearchDecoder:
         self._beam_fn = beam_device.make_device_beam_search(
             cfg.beam_width, lm=device_lm, prune_top_k=self.prune_top_k
         )
+
+    def _say(self, message: str) -> None:
+        if self.mesh.primary:
+            print(message)
 
     def close(self) -> None:
         self._pool.shutdown()
@@ -375,6 +399,27 @@ class BeamSearchDecoder:
         avg_loss, lengths = finish_readback(*readback)
         return avg_loss, logp, lengths
 
+    def decode_shared(self, logp, lengths) -> tuple[np.ndarray, np.ndarray]:
+        """:meth:`decode_emissions` of a batch whose search the ranks share:
+        each decodes its :func:`~speecht_tpu_torch.parallel.mesh.beam_rows`
+        (the device beam slices the log-probs on its card), pads the ids
+        to the batch's logit width ``T`` and gathers every rank's, so
+        every rank returns the global rows ``[rows, T]``. Every rank calls
+        it for every batch, in order, a share of padding rows alone too.
+        On a ``1 x 1`` mesh: :meth:`decode_emissions` itself."""
+        if self.mesh.dp * self.mesh.mp == 1:
+            return self.decode_emissions(logp, lengths)
+        rows, T = logp.shape[:2]
+        ids, out_lengths = self.decode_emissions(
+            pmesh.beam_rows(logp, self.mesh), pmesh.beam_rows(lengths, self.mesh)
+        )
+        # the device beam's ids end at its own bucket; frames past a row's
+        # length are never read, so the padding changes no token
+        ids = np.pad(ids, ((0, 0), (0, T - ids.shape[1])),
+                     constant_values=vocabulary.PAD_ID)
+        return (pmesh.gather_beam_rows(ids, self.mesh, rows),
+                pmesh.gather_beam_rows(out_lengths, self.mesh, rows))
+
     def _finish_batch(self, host_batch, launched):
         avg_loss, logp, lengths = self.finish(launched)
-        return host_batch, avg_loss, *self.decode_emissions(logp, lengths)
+        return host_batch, avg_loss, *self.decode_shared(logp, lengths)

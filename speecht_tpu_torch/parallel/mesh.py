@@ -283,3 +283,35 @@ def local_rows(x: np.ndarray, mesh: Mesh) -> np.ndarray:
     :func:`allgather_host_rows`)."""
     per = x.shape[0] // mesh.dp
     return x[mesh.data_index * per: (mesh.data_index + 1) * per]
+
+
+def beam_rows(x, mesh: Mesh):
+    """This rank's contiguous share of its data block ``x`` (numpy or
+    torch, rows on dim 0), which every rank of its model group holds
+    alike: the block split by ``mesh.model_index``, as JAX's
+    ``local_rows`` splits replicated rows, so the ranks of a model group
+    beam different rows. A block that does not divide by ``mp`` is padded
+    with zero rows (length 0), which :func:`gather_beam_rows` drops."""
+    per = -(-x.shape[0] // mesh.mp)
+    lo = min(mesh.model_index * per, x.shape[0])
+    share = x[lo: lo + per]
+    missing = per - share.shape[0]
+    if not missing:
+        return share
+    if isinstance(share, torch.Tensor):
+        return torch.cat([share, share.new_zeros((missing, *share.shape[1:]))])
+    return np.concatenate([share, np.zeros((missing, *share.shape[1:]), share.dtype)])
+
+
+def gather_beam_rows(x: np.ndarray, mesh: Mesh, block_rows: int) -> np.ndarray:
+    """Every rank's share (:func:`beam_rows`) of a host array concatenated
+    in rank order, which is the global row order, less the padding rows:
+    each data block keeps its first ``block_rows``. A collective on the
+    main thread's gloo group; the identity for one process."""
+    if not comm.initialized():
+        return np.asarray(x)
+    parts = comm.host_all_gather(np.asarray(x), thread="host")
+    return np.concatenate([
+        np.concatenate(parts[i * mesh.mp: (i + 1) * mesh.mp])[:block_rows]
+        for i in range(mesh.dp)
+    ])

@@ -118,15 +118,20 @@ def make_forward_step(model: Wav2Letter) -> Callable:
     return forward
 
 
-def make_audio_loss_fn(model: Wav2Letter, front_end: Callable) -> Callable:
+def make_audio_loss_fn(
+    model: Wav2Letter, front_end: Callable, mesh: Mesh | None = None
+) -> Callable:
     """AudioBatch -> (average CTC loss, logits, logit_lengths): the
     ``--from-audio`` twin of :func:`make_loss_fn`, with ``front_end``
-    (``features_device.make_front_end``) ahead of the model.
+    (``features_device.make_front_end``) ahead of the model; the loss sum
+    and the real-row count are summed over the mesh's data group, so the
+    value is the global average (evaluate only: no gradient).
 
     A padding row's features are NaN (0/0 in the masked normalisation), so
     its loss is NaN: the mask is a ``where``, never a multiply (NaN * 0 is
     NaN).
     """
+    mesh = mesh or Mesh()
 
     def loss_fn(batch):
         feats, frame_lengths = front_end(batch.audio, batch.num_samples)
@@ -136,18 +141,21 @@ def make_audio_loss_fn(model: Wav2Letter, front_end: Callable) -> Callable:
             logits, logit_lengths, batch.labels, batch.label_lengths
         )
         real = (batch.num_samples > 0) & (losses < 1e29)
-        avg_loss = torch.where(real, losses, 0.0).sum() / real.sum().clamp(
-            min=1
+        local = torch.where(real, losses, 0.0).sum()
+        totals = mesh.all_reduce_(
+            torch.stack([local, real.sum().to(local.dtype)]), "data"
         )
-        return avg_loss, logits, logit_lengths
+        return totals[0] / totals[1].clamp(min=1), logits, logit_lengths
 
     return loss_fn
 
 
-def make_audio_eval_step(model: Wav2Letter, front_end: Callable) -> Callable:
+def make_audio_eval_step(
+    model: Wav2Letter, front_end: Callable, mesh: Mesh | None = None
+) -> Callable:
     """AudioBatch -> (loss, decoded [B, T//2], decoded_lengths [B]); the
     decoded lengths of padding rows are 0."""
-    loss_fn = make_audio_loss_fn(model, front_end)
+    loss_fn = make_audio_loss_fn(model, front_end, mesh)
 
     @torch.inference_mode()
     def eval_step(batch):

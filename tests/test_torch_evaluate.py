@@ -254,13 +254,11 @@ def test_missing_weights_is_fatal(workdir):
     ],
 )
 def test_unported_paths_raise(workdir, flags):
-    """The LM beam and the audio front end on several ranks are not
-    ported; the grid flags are, but one process is one rank, so alone
-    they raise the mesh's error (tests/test_torch_parallel_train.py runs
-    two ranks)."""
-    if "--language-model" in flags or "--from-audio" in flags:
-        with pytest.raises(NotImplementedError, match="on several ranks.*not ported"):
-            CLI(_argv(workdir, "--device", "cpu", *flags)).run()
-    else:
-        with pytest.raises(ValueError, match="device count 1|exceeds 1 available devices"):
-            CLI(_argv(workdir, "--device", "cpu", *flags)).run()
+    """Every grid flag is ported, with the LM beam and the audio front end
+    too, but one process is one rank, so alone they raise the mesh's
+    error, as JAX's mesh does on one device
+    (tests/test_torch_parallel_train.py and test_torch_parallel_decode.py
+    run two ranks). The name is older than the port of the LM and audio
+    paths on several ranks."""
+    with pytest.raises(ValueError, match="device count 1|exceeds 1 available devices"):
+        CLI(_argv(workdir, "--device", "cpu", *flags)).run()

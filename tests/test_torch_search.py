@@ -168,6 +168,18 @@ def test_search_without_checkpoint_is_fatal(workdir):
 @pytest.mark.parametrize(
     "flags", [["--device-beam", "--data-parallel", "2"], ["--data-parallel", "2"]]
 )
-def test_unported_search_paths_raise(workdir, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_unported_search_paths_raise(workdir, flags, monkeypatch):
+    """One process is one rank, so the grid flags raise the mesh's
+    ValueError, as the JAX CLI's ``search`` raises it on one device (its
+    mesh takes ``jax.devices()``, cut here to the first of the suite's
+    eight virtual devices). The name is older than the port of the LM
+    paths on several ranks."""
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
+    with pytest.raises(ValueError) as jax_error:
+        JaxCLI(_argv(workdir, "jax", *flags)).run()
+    monkeypatch.undo()
+    with pytest.raises(ValueError) as error:
         CLI(_argv(workdir, "torch", "--device", "cpu", *flags)).run()
+    assert str(jax_error.value) == "mesh 2x1 exceeds 1 available devices"
+    assert str(error.value).startswith(str(jax_error.value))

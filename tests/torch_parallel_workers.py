@@ -11,6 +11,7 @@ here, so a rank starts in a second or two.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -265,3 +266,69 @@ def sync_dims(rank, world, work):
         gathered=gathered,
         local=pmesh.local_rows(gathered, mesh),
     )
+
+
+# -- evaluate with the LM and from audio (test_torch_parallel_decode.py) --------
+
+
+def evaluate_recorded(argv):
+    """``evaluate`` through ``CLI(argv).run()``: its stdout, the global
+    statistics (:func:`stats_row`), every row it tracked as sorted
+    ``[expected, decoded]`` strings, each batch's loss unrounded, and how
+    many rows this process's beam searched."""
+    import io
+
+    from speecht_tpu_torch import vocabulary
+    from speecht_tpu_torch.cli import CLI
+    from speecht_tpu_torch.evaluation import Evaluation
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder
+
+    rows, losses, searched = [], [], []
+    track, results = Evaluation._track_batch, Evaluation._result_iterator
+    decode = BeamSearchDecoder.decode_emissions
+
+    def tracked(stats, batch, decoded, dec_lengths, verbose=False):
+        lengths = getattr(batch, "seq_lengths", None)
+        lengths = batch.num_samples if lengths is None else lengths
+        for i in range(decoded.shape[0]):
+            if lengths[i]:
+                rows.append([
+                    vocabulary.ids_to_sentence(batch.labels[i, : batch.label_lengths[i]]),
+                    vocabulary.ids_to_sentence(decoded[i, : dec_lengths[i]]),
+                ])
+        return track(stats, batch, decoded, dec_lengths, verbose)
+
+    def recorded(self, eval_step, loader):
+        for item in results(self, eval_step, loader):
+            losses.append(float(item[1]))
+            yield item
+
+    def counted(self, logp, lengths, *args, **kwargs):
+        searched.append(int(logp.shape[0]))
+        return decode(self, logp, lengths, *args, **kwargs)
+
+    Evaluation._track_batch = staticmethod(tracked)
+    Evaluation._result_iterator = recorded
+    BeamSearchDecoder.decode_emissions = counted
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            stats = CLI(["evaluate", *argv]).run()
+    finally:
+        Evaluation._track_batch = staticmethod(track)
+        Evaluation._result_iterator = results
+        BeamSearchDecoder.decode_emissions = decode
+    return {"stdout": buf.getvalue(), "stats": stats_row(stats),
+            "rows": sorted(rows), "losses": losses, "searched": sum(searched)}
+
+
+def decode_runs(rank, world, work, argv_base, cases):
+    """``evaluate`` through the CLI for each ``(name, flags)`` of
+    ``cases`` (the LM paths and from audio, on a 2 x 1 or 1 x 2 grid);
+    each rank saves what :func:`evaluate_recorded` returns."""
+    import json
+
+    os.environ["SPEECHT_DEVICE_LM_CACHE"] = os.path.join(work, "device_lm")
+    out = {name: evaluate_recorded([*argv_base, *flags]) for name, flags in cases}
+    with open(os.path.join(work, f"decode-{rank}.json"), "w") as f:
+        json.dump(out, f)
