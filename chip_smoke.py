@@ -49,15 +49,19 @@ drives the port's main path through its normal entry point, and fails
    collapsed-like log-probs made from a seed: the main shape (B=64,
    130-230 kept frames a row, width 100, top-k 8, the phase-3d order-3
    ARPA LM, which this phase writes), no LM, ``n_best=8``, W=1024 on short
-   rows, ragged rows (lengths 0 and 1 among them), an order-1 LM, an
-   order-6 LM (history 5, ``<s>`` pinned) and the phase-3d LM keyed by
-   KenLM's chained hash (``kenlm_keyed_lm``): ids and lengths equal on
-   every row, n-best scores to 1e-6 relative (the count bit-equal
-   reported), two calls bit-equal; at the main shape the kernel's time
-   beside the plain version's, the bound and the yardstick, the port's
-   host C++ beam on ``os.cpu_count()`` threads over the same rows (no
-   single PyTorch call searches a beam); the kernel's shared memory at
-   W=100 and W=1024.
+   rows and on the main rows, ragged rows (lengths 0 and 1 among them),
+   an order-1 LM, an order-6 LM (history 5, ``<s>`` pinned), the phase-3d
+   LM keyed by KenLM's chained hash (``kenlm_keyed_lm``) and tie-heavy
+   emissions (``tie_emissions``, with and without the LM): ids and
+   lengths equal on every row, n-best scores to 1e-6 relative (the count
+   bit-equal reported), two calls bit-equal; at the main shape the
+   kernel's time (and µs a frame of the longest row) beside the plain
+   version's, the bound and the yardstick, the port's host C++ beam on
+   ``os.cpu_count()`` threads over the same rows (no single PyTorch call
+   searches a beam), the LM's share (the time without it), and the split
+   of a frame by the kernel's ``-DBEAM_DEVICE_SPLIT`` build
+   (``beam_split``: µs a frame in each phase, with and without the LM);
+   the kernel's shared memory at W=100 and W=1024.
 3. The evaluate path: ``CLI(["evaluate", ...]).run()`` on a synthetic
    cached corpus (256 utterances of 600-1024 frames) with full-width
    random weights (128/250/2000/29, 11 layers) written as a
@@ -855,12 +859,15 @@ BEAM_SCORE_RTOL = 1e-6
 # its two hypotheses within this of each other under float64 rescoring
 # (the bound of JAX's own tests/test_beam_device.py:300)
 BEAM_TIE_MARGIN = 0.1
-# operations a candidate costs: a log-add-exp of its pb and pnb (max,
-# subtract, abs, exp, log1p, add), its extension score, its LM term and the
-# total, with the compares of its masks; 2 of the 12 (exp, log1p) run on
-# the special-function units
-BEAM_OPS_PER_CANDIDATE = 12
-BEAM_SFU_OPS_PER_CANDIDATE = 2
+# operations a candidate costs: its extension score, its LM term, the
+# total, the three compares of its masks and the larger of its pb and pnb;
+# a log-add-exp whose two arguments are both live and within 110 of each
+# other adds a subtract, an abs and an add, and an exp and a log1p on the
+# special-function units (any other gives the larger argument, to the bit)
+BEAM_OPS_PER_CANDIDATE = 7
+BEAM_OPS_PER_LOGADDEXP = 3
+BEAM_SFU_OPS_PER_LOGADDEXP = 2
+BEAM_LOGADDEXP_SPAN = 110.0
 # the 67e12 counts an FMA as two operations (132 SMs x 128 float32 lanes x
 # 2 x 1.98 GHz): an add, a compare or a max is one a lane and clock, and
 # the special-function units give 16 results a clock an SM against the 128
@@ -892,6 +899,14 @@ def beam_emissions(seed, lengths):
     logp = torch.log_softmax(torch.from_numpy(logits), dim=-1).numpy()
     logp[np.arange(T)[None, :] >= lengths[:, None]] = 0.0
     return logp, lengths
+
+
+def tie_emissions(seed, lengths):
+    """``beam_emissions`` rounded to whole nats (the likeliest char to -0.0):
+    many chars of a frame share a log-prob, so the frame's top-K and the
+    pool hold many equal values, and only the index rule orders them."""
+    logp, lengths = beam_emissions(seed, lengths)
+    return np.round(logp).astype(np.float32), lengths
 
 
 def write_arpa(path, grams):
@@ -960,29 +975,60 @@ def kenlm_keyed_lm(lm_dir, device):
     return beam_device.DeviceLM._from_np(meta, tables, None, device)
 
 
-def beam_bound_ms(lengths, W, K, H, n_best, T, table_bytes):
-    """Least time for this data: the emissions read once, the [B, T, W]
-    int16 backpointers and the outputs written once, the LM rows probed
+class LogAddExpCount(torch.overrides.TorchFunctionMode):
+    """Counts, in a plain search run under it, the log-add-exps that need an
+    exp and a log1p: both arguments live (above NEG / 2) and within
+    BEAM_LOGADDEXP_SPAN of each other, in each row's own frames (each frame
+    makes three calls, the pool's total last, then the final ranking one)."""
+
+    def __init__(self, lengths):
+        super().__init__()
+        self.lengths = torch.as_tensor(np.asarray(lengths, np.int64))
+        self.rows = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.logaddexp:
+            from speecht_tpu_torch.ops.beam_device import NEG
+
+            a, b = args[:2]
+            need = (a > NEG / 2) & (b > NEG / 2) & ((a - b).abs() <= BEAM_LOGADDEXP_SPAN)
+            self.rows.append(need.reshape(need.shape[0], -1).sum(1).cpu())
+        return out
+
+    def count(self, T):
+        check(len(self.rows) == 3 * T + 1,
+              f"the plain search made {len(self.rows)} log-add-exp calls, not {3 * T + 1}")
+        frame_of_call = torch.arange(3 * T) // 3
+        live = frame_of_call[:, None] < self.lengths[None, :]
+        return int((torch.stack(self.rows[:-1]) * live).sum() + self.rows[-1].sum())
+
+
+def beam_bound_ms(lengths, W, K, H, n_best, T, table_bytes, logaddexps):
+    """Least time for this data: the emissions read once, the outputs
+    written once (the backpointers can stay on chip), the LM rows probed
     (a word-table row and the 2H+1 arena rows of a backoff walk for every
     beam and frame) capped at the tables' size. Operations per frame and
-    row, by type: the (K+1)·W candidates' arithmetic (exp and log1p at
-    the special-function units' rate, the rest at the non-FMA float32
-    rate); the top-W selection of the pool, P + W·log2(W) compares; one
-    match a beam for the merge, two 32-bit key compares. The two kinds of
-    unit run side by side, so the operations take the longer of their two
-    times. Returns (ms, bound_by, the counts)."""
+    row, by type: the (K+1)·W candidates' arithmetic; the top-W selection of
+    the pool, P + W·log2(W) compares; one match a beam for the merge, two
+    32-bit key compares; and ``logaddexps``, the run's log-add-exps that
+    need an exp and a log1p (LogAddExpCount), those two at the
+    special-function units' rate, the rest at the non-FMA float32 rate. The
+    two kinds of unit run side by side, so the operations take the longer
+    of their two times. Returns (ms, bound_by, the counts)."""
     frames = int(np.asarray(lengths, np.int64).sum())
     B = len(lengths)
     P = (K + 1) * W
     probes = frames * W * (2 + 2 * H) if table_bytes else 0
-    nbytes = (frames * 29 * 4 + 4 * B + frames * W * 2 + B * n_best * (4 * T + 8)
+    nbytes = (frames * 29 * 4 + 4 * B + B * n_best * (4 * T + 8)
               + min(probes * BEAM_BYTES_PER_PROBE, table_bytes))
-    sfu = frames * P * BEAM_SFU_OPS_PER_CANDIDATE
-    alu = frames * (P * (BEAM_OPS_PER_CANDIDATE - BEAM_SFU_OPS_PER_CANDIDATE)
-                    + P + W * math.ceil(math.log2(W)) + 2 * W)
+    sfu = logaddexps * BEAM_SFU_OPS_PER_LOGADDEXP
+    alu = (frames * (P * BEAM_OPS_PER_CANDIDATE + P + W * math.ceil(math.log2(W)) + 2 * W)
+           + logaddexps * BEAM_OPS_PER_LOGADDEXP)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = max(alu / PEAK_F32_NON_FMA_OPS_PER_S, sfu / PEAK_SFU_OPS_PER_S)
-    counts = {"bytes": nbytes, "float32_ops": alu, "sfu_ops": sfu}
+    counts = {"bytes": nbytes, "float32_ops": alu, "sfu_ops": sfu,
+              "logaddexps": logaddexps, "all_logaddexps": frames * (P + 2 * W) + B * W}
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             counts)
 
@@ -1026,7 +1072,9 @@ def check_beam(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
     n = torch.from_numpy(lengths).to(device)
     got = [t.cpu() for t in fn(x, n, *weights)]
     again = [t.cpu() for t in fn(x, n, *weights)]
-    want = [t.cpu() for t in fn.plain(x, n, *weights)]
+    lae = LogAddExpCount(lengths)
+    with lae if time_it else contextlib.nullcontext():
+        want = [t.cpu() for t in fn.plain(x, n, *weights)]
     same_ids = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
     rows_equal = int((got[0] == want[0]).reshape(len(lengths), -1).all(1).sum())
     bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1059,14 +1107,63 @@ def check_beam(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
     host_ms, _ = host_beam_ms(logp, lengths, lm_dir, W, weights)
     table_bytes = lm.hbm_bytes() if lm is not None else 0
     bound_ms, bound_by, counts = beam_bound_ms(lengths, W, K, H, n_best, logp.shape[1],
-                                               table_bytes)
-    print(f"beam_device {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, host C++ beam "
+                                               table_bytes, lae.count(logp.shape[1]))
+    us_frame = ms * 1e3 / max(int(lengths.max()), 1)
+    print(f"beam_device {name}: kernel {ms!r} ms ({us_frame:.3f} µs a frame of the "
+          f"longest row), plain {plain_ms!r} ms, host C++ beam "
           f"({os.cpu_count()} threads) {host_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: "
           f"{counts['float32_ops']} float32 operations and compares, {counts['sfu_ops']} "
-          f"exp/log1p, {counts['bytes']} bytes); LM tables {table_bytes} bytes")
+          f"exp/log1p for the {counts['logaddexps']} of {counts['all_logaddexps']} "
+          f"log-add-exps that need them, {counts['bytes']} bytes); LM tables "
+          f"{table_bytes} bytes")
     result.update(ms=ms, plain_ms=plain_ms, host_beam_ms=host_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, library_ms=None)
+                  bound_by=bound_by, library_ms=None, us_per_frame=us_frame)
     return result
+
+
+def beam_split(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
+               weights=BEAM_WEIGHTS):
+    """The beam kernel's split build (``-DBEAM_DEVICE_SPLIT``) on the same
+    rows: its ids equal to the plain build's, then each phase's µs a frame.
+    Thread 0 of each CTA adds up clock64() intervals between the phases'
+    barriers, its waits at them and the radix passes; the cycles become µs
+    at the clock that the slowest row's cycles over the split build's own
+    time (CUDA events) give. Returns {phase: µs a frame} with the waits,
+    the passes a frame, the clock and the split build's ms."""
+    from speecht_tpu_torch.ops import beam_device, beam_device_cuda
+
+    split = beam_device_cuda.BEAM_DEVICE_SPLIT
+    fn = beam_device.make_device_beam_search(W, lm=lm, prune_top_k=top_k)
+    x = torch.from_numpy(logp).to(device)
+    n = torch.from_numpy(lengths).to(device)
+
+    def run():
+        return split(fn.spec, x, n, *weights)
+
+    want = [t.cpu() for t in fn(x, n, *weights)]
+    got = [t.cpu() for t in run()]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"beam_device split build {name}: ids differ from the plain build's")
+    ms = time_ms(run, iters=5)
+    rows = split.split(len(lengths))
+    frames = int(rows[:, -1].sum())
+    clock_hz = float(rows[:, -2].max()) / (ms / 1e3)
+
+    def us(column):
+        return float(rows[:, column].sum()) / max(frames, 1) / clock_hz * 1e6
+
+    phases = len(beam_device_cuda.SPLIT_PHASES)
+    per_frame = {phase: us(i) for i, phase in enumerate(beam_device_cuda.SPLIT_PHASES)}
+    waiting = us(phases)
+    passes = float(rows[:, phases + 1].sum()) / max(frames, 1)
+    print(f"beam_device split {name} (µs a frame, thread 0 of each CTA, clock "
+          f"{clock_hz / 1e9:.3f} GHz from the split build's {ms!r} ms): " + ", ".join(
+              f"{phase} {value:.3f}" for phase, value in per_frame.items())
+          + f"; in all {sum(per_frame.values()):.3f}, of it waiting at barriers "
+          f"{waiting:.3f}; radix passes a frame {passes:.3f}")
+    per_frame["waiting at barriers"] = waiting
+    per_frame["radix passes a frame"] = passes
+    return dict(per_frame, clock_ghz=clock_hz / 1e9, split_ms=ms)
 
 
 def beam_phase(work, device):
@@ -1089,10 +1186,19 @@ def beam_phase(work, device):
     main = check_beam("main shape", lm, logp, lengths, device, lm_dir=lm_dir,
                       time_it=True)
     # timed too: the main shape's time less this one is what the LM costs
-    check_beam("no LM", None, logp, lengths, device, time_it=True)
+    no_lm = check_beam("no LM", None, logp, lengths, device, time_it=True)
+    main["lm_share"] = (main["ms"] - no_lm["ms"]) / main["ms"]
+    print(f"beam_device the LM's share of the main shape: {main['lm_share']:.3f} "
+          f"({main['ms'] - no_lm['ms']!r} ms)")
+    main["split"] = beam_split("main shape", lm, logp, lengths, device)
+    main["split_no_lm"] = beam_split("no LM", None, logp, lengths, device)
     check_beam("n_best=8", lm, logp, lengths, device, n_best=8)
     short, short_len = beam_emissions(1, rng.randint(10, 31, size=8))
     check_beam("W=1024 short rows", lm, short, short_len, device, W=1024)
+    check_beam("W=1024 main rows", lm, logp, lengths, device, W=1024)
+    tie, tie_len = tie_emissions(3, lengths[:16])
+    check_beam("tie-heavy", lm, tie, tie_len, device, n_best=4)
+    check_beam("tie-heavy, no LM", None, tie, tie_len, device)
     ragged, ragged_len = beam_emissions(2, [0, 1, 2, 5, 50, 130, 200, 230])
     check_beam("ragged lengths", lm, ragged, ragged_len, device, n_best=4)
     check_beam("order-1 LM", load(order1_dir), logp[:16], lengths[:16], device)
@@ -3998,7 +4104,9 @@ def main() -> int:
     # the host library (g++) builds beside the kernels (one nvcc each)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         host_build = pool.submit(native.build)
-        cuda_build.build([k.name for k in kernels])
+        # with phase 2d's split build of the beam kernel
+        cuda_build.build([k.name for k in kernels]
+                         + [("beam_device", beam_device_cuda.BEAM_DEVICE_SPLIT.defines)])
         print(f"kernel build: {time.perf_counter() - t0:.1f} s for {[k.name for k in kernels]}")
         host_lib = host_build.result()
     print(f"host library build (g++: FLAC decode, resample, npz reader, beam search "
@@ -4185,6 +4293,10 @@ def main() -> int:
         entry["launches_by_path"].update(
             {path: record_runs[path][entry["name"]] for path in serving_paths})
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
+    beam_entry["us_per_frame"] = beam_main["us_per_frame"]
+    beam_entry["lm_share"] = beam_main["lm_share"]
+    beam_entry["split_us_per_frame"] = {"main shape": beam_main["split"],
+                                        "no LM": beam_main["split_no_lm"]}
     beam_entry["ms_in_evaluate_batch"] = beam_kernel_ms
     beam_entry["evaluate_device_beam_ms_per_batch"] = beam_lm_ms
     beam_entry["evaluate_host_beam_ms_per_batch"] = lm_ms

@@ -1059,7 +1059,8 @@ def plain_beam_search(spec: BeamSpec, logp: torch.Tensor, lengths: torch.Tensor,
         k_idx = last_in.to(torch.int32).argmax(dim=-1).long()
         rows = torch.where(has, p_idx.long(), W)
         prev = ext_pnb[rows_b, rows.clamp(max=W - 1), k_idx]
-        merged = torch.logaddexp(prev, stay_pnb)
+        # only a match merges (row W's writes are dropped)
+        merged = torch.logaddexp(torch.where(has, prev, NEG), stay_pnb)
         ext_pnb = torch.cat([ext_pnb, neg_row], dim=1)
         ext_pnb[rows_b, rows, k_idx] = merged
         ext_pnb = ext_pnb[:, :W]

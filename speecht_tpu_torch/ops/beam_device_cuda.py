@@ -8,13 +8,27 @@ is ``ops/beam_device.py::plain_beam_search``; ``make_device_beam_search``
 takes that only for log-probs on the CPU and calls :data:`BEAM_DEVICE` for
 log-probs on a CUDA device, which launches the kernel or raises.
 
+A frame is a chain of block barriers, so the kernel keeps the chain
+short (the source's header has the details): the frames' top-K is ranked
+a chunk of 32 frames ahead into a shared ring; the merge probes a shared
+hash table of the alive prefixes once; the top W of the (K+1)·W pool are
+found by a radix select of order-preserving 32-bit keys, ties at the
+threshold kept by candidate index (the plain version's stable sort, JAX's
+``lax.top_k``), and only those W are ranked; the LM bonus travels with
+the slot, so only a letter extension walks the LM, on spare warps while
+the owners publish and merge; the backpointers stay in shared memory where
+[T, W] int16 fits (else in a [B, T, W] global scratch this wrapper allocates).
+
 The library's limits are held here too, as Python constants equal to
 ``csrc/beam_device.cu``'s (``kMaxW``, the 65535-candidate cap,
-``kMaxSmem``) with a twin of ``beam_device_smem_bytes``, so that
-``ops/beam.py`` decides from the flags alone, before it loads an LM or
-builds the library, whether ``--device-beam`` can take a width
-(:func:`shape_limits`). The launch-time :meth:`BeamDeviceKernel.check_shape`
-asks the library itself.
+``kMaxSmem``) with a twin of ``beam_device_smem_bytes`` (the kernel's
+``Layout``), so that ``ops/beam.py`` decides from the flags alone, before
+it loads an LM or builds the library, whether ``--device-beam`` can take
+a width (:func:`shape_limits`). The launch-time
+:meth:`BeamDeviceKernel.check_shape` asks the library itself.
+:data:`BEAM_DEVICE_SPLIT` is the same source built with
+``-DBEAM_DEVICE_SPLIT`` (a split of a frame's time by phase), which only
+``chip_smoke.py`` loads.
 """
 
 from __future__ import annotations
@@ -29,25 +43,31 @@ from speecht_tpu_torch.ops.beam_device import BeamSpec, fusion_weights
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# csrc/beam_device.cu:65-66: kMaxW, the candidate index's int16 range,
-# kMaxSmem, kMaxH, kMaxC
+# csrc/beam_device.cu's kMaxW, the candidate index's 16-bit range,
+# kMaxSmem, kMaxH, kMaxC, kChunk and kPasses
 MAX_WIDTH = 1024
 MAX_CANDIDATES = 0xFFFF
 MAX_SMEM = 232448
 MAX_HIST = 5
 MAX_CLASSES = 32
+FRAME_CHUNK = 32
+RADIX_PASSES = 5
 
 
 def smem_bytes(W: int, K: int, H: int) -> int:
     """``beam_device_smem_bytes`` in Python: the kernel's ``Layout``, each
-    region rounded up to 16 bytes."""
-    P2 = 1 << max(0, ((K + 1) * W - 1).bit_length())  # next_pow2((K+1)W)
+    region rounded up to 16 bytes (a launch adds the LM threads' requests
+    and the backpointers where they fit)."""
+    cells = 1 << max(0, (2 * W - 1).bit_length())  # next_pow2(2W)
     regions = (
-        MAX_CLASSES * 4, MAX_CLASSES * 4, MAX_CLASSES * 4,  # frame, top-K
+        2 * FRAME_CHUNK * ((5 * K + 36 + 15) & ~15),  # the frame ring
         6 * W * 4, 6 * W * 4, 5 * W * 4,  # the published beam state
-        W * max(H, 1) * 4, W,  # word history, has-word flags
+        W * max(H, 1) * 4, W,  # word history, has-a-merge flags
         W * K * 2,  # the merge map
-        P2 * 4, P2 * 2,  # sort keys, indices
+        cells * 4,  # the prefix hash table
+        (K + 1) * W * 4,  # the pool's keys
+        RADIX_PASSES * 256 * 4, 32 * 4, 16,  # histograms, warp sums, 2 keys
+        W * 4, W * 2,  # the kept list: keys, candidate indices
     )
     total = 0
     for n in regions:
@@ -155,7 +175,12 @@ class BeamDeviceKernel(cuda_build.KernelLibrary):
         ids = torch.empty(B, n, T, dtype=torch.int32, device=device)
         lens = torch.empty(B, n, dtype=torch.int32, device=device)
         scores = torch.empty(B, n, dtype=torch.float32, device=device)
-        bp = torch.empty(B, T, W, dtype=torch.int16, device=device)
+        # the backpointers' global scratch, only where [T, W] int16 does not
+        # fit in shared memory beside the layout (the kernel's own test)
+        bp = None
+        if (self.lib.beam_device_smem_bytes(W, K, H) + 2 * T * W
+                > self.lib.beam_device_max_smem()):
+            bp = torch.empty(B, T, W, dtype=torch.int16, device=device)
         if lm is None:
             lm_args = [0, H, 0, spec.bos_id, 0, 0, spec.hcnt_cap,
                        0.0, lm_ln10, wc_w, vwc_w,
@@ -172,7 +197,8 @@ class BeamDeviceKernel(cuda_build.KernelLibrary):
             ]
         code = self.lib.beam_device_search(
             logp.data_ptr(), lengths.data_ptr(), B, T, C, W, K, n, *lm_args,
-            bp.data_ptr(), ids.data_ptr(), lens.data_ptr(), scores.data_ptr(),
+            None if bp is None else bp.data_ptr(), ids.data_ptr(), lens.data_ptr(),
+            scores.data_ptr(),
             cuda_build.device_index(device),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -183,5 +209,34 @@ class BeamDeviceKernel(cuda_build.KernelLibrary):
         return ids, lens, scores
 
 
+# the phases of a frame that the split build times, in the order of
+# beam_device_split_read's columns
+SPLIT_PHASES = ("frame load and top-K", "publish", "merge", "scoring", "selection",
+                "re-index", "LM probes", "backtrack")
+
+
+class BeamDeviceSplit(BeamDeviceKernel):
+    """``csrc/beam_device.cu`` built a second time with
+    ``-DBEAM_DEVICE_SPLIT``: the same search, where thread 0 of each CTA
+    adds up ``clock64()`` intervals of the frame's phases
+    (:data:`SPLIT_PHASES`). No CLI path loads it; ``chip_smoke.py`` phase 2d
+    does, to say where a frame's time goes."""
+
+    defines = ("BEAM_DEVICE_SPLIT",)
+    signatures = BeamDeviceKernel.signatures + (
+        ("beam_device_split_read", [_P, _I], _I),
+    )
+
+    def split(self, rows: int) -> torch.Tensor:
+        """The last launch's split of its first ``rows`` rows, int64
+        [rows, len(SPLIT_PHASES) + 4]: each phase's cycles summed over the
+        row's frames, thread 0's cycles waiting at barriers (within those
+        phases), the radix passes, the row's cycles in all, its frames."""
+        out = torch.empty(rows, len(SPLIT_PHASES) + 4, dtype=torch.int64)
+        self._raise_on(self.lib.beam_device_split_read(out.data_ptr(), rows))
+        return out
+
+
 BEAM_DEVICE = BeamDeviceKernel()
+BEAM_DEVICE_SPLIT = BeamDeviceSplit()
 KERNELS = (BEAM_DEVICE,)

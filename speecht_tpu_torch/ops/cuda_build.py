@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers) into ``_build/lib<name>-<digest>.so`` inside
 the package, where ``<digest>`` hashes the source, the shared headers
-``csrc/*.cuh`` and the flags, so an edited source rebuilds and a built one
-is reused. :func:`build` starts one ``nvcc`` per missing library, all at
-once, and waits for them. Processes that share the build directory (the
-ranks of a multi-process run) may build the same library at once: each
-writes its own ``.so`` and compiler log under a name with its pid and
-publishes both with ``os.replace``.
+``csrc/*.cuh``, the flags and any ``-D`` defines, so an edited source
+rebuilds and a built one is reused; a library built with defines (a
+variant of the same source, such as the beam kernel's split build) sits
+beside the plain one under its own digest. :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for them. Processes
+that share the build directory (the ranks of a multi-process run) may
+build the same library at once: each writes its own ``.so`` and compiler
+log under a name with its pid and publishes both with ``os.replace``.
 Nothing is built when a module is imported: the wrappers call
 :func:`load` at their first launch.
 """
@@ -46,8 +48,8 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> str:
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for source in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC_DIR, source), "rb") as f:
@@ -55,51 +57,57 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def log_path(name: str) -> str:
+def log_path(name: str, defines: tuple = ()) -> str:
     """The compiler output (``-Xptxas -v``: registers, shared memory, spills)."""
-    return library_path(name)[: -len(".so")] + ".log"
+    return library_path(name, defines)[: -len(".so")] + ".log"
 
 
-def build(names: list[str]) -> dict[str, str]:
+def build(names: list) -> dict:
     """Compile every library in ``names`` that is not built yet, in parallel.
 
-    Returns {name: path of the .so}. Raises RuntimeError with the compiler
-    output when a build fails.
+    An entry is a source's name, or (name, defines) for a variant built
+    with ``-D`` of each define. Returns {entry: path of the .so}. Raises
+    RuntimeError with the compiler output when a build fails.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {name: library_path(name) for name in names}
+    specs = {entry: (entry, ()) if isinstance(entry, str) else entry for entry in names}
+    paths = {entry: library_path(*spec) for entry, spec in specs.items()}
     running = {}
-    for name, path in paths.items():
+    for entry, path in paths.items():
         if os.path.exists(path):
             continue
+        name, defines = specs[entry]
         tmp = f"{path}.{os.getpid()}.tmp"
-        tmp_log = f"{log_path(name)}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        tmp_log = f"{log_path(name, defines)}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
         log = open(tmp_log, "w")
-        running[name] = (
+        running[entry] = (
             subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
             log,
             tmp,
             tmp_log,
         )
     failed = []
-    for name, (proc, log, tmp, tmp_log) in running.items():
+    for entry, (proc, log, tmp, tmp_log) in running.items():
         proc.wait()
         log.close()
         if proc.returncode == 0:
-            os.replace(tmp_log, log_path(name))
-            os.replace(tmp, paths[name])
+            os.replace(tmp_log, log_path(*specs[entry]))
+            os.replace(tmp, paths[entry])
         else:
             with open(tmp_log) as f:
-                failed.append(f"{name}.cu:\n{f.read()}")
+                failed.append(f"{' -D'.join([specs[entry][0] + '.cu', *specs[entry][1]])}:"
+                              f"\n{f.read()}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
-    return ctypes.CDLL(build([name])[name])
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (with ``defines``) if needed and load it."""
+    entry = (name, tuple(defines)) if defines else name
+    return ctypes.CDLL(build([entry])[entry])
 
 
 def device_index(device) -> int:
@@ -118,6 +126,8 @@ class KernelLibrary:
     """
 
     name = ""
+    # -D defines of a variant build of the same source
+    defines: tuple = ()
     # (function, argtypes, restype) of the library's C interface
     signatures: tuple = ()
 
@@ -128,7 +138,7 @@ class KernelLibrary:
     @property
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = load(self.name)
+            lib = load(self.name, self.defines)
             for fn, argtypes, restype in self.signatures:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype

@@ -17,6 +17,8 @@
   threads.
 """
 
+import itertools
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -391,3 +393,31 @@ def test_shape_limits(W, K, H, limits):
     assert len(found) == len(limits)
     for phrase, word in zip(found, limits):
         assert word in phrase
+
+
+def _first_kernel_smem_bytes(W, K, H):
+    """The shared memory of the device beam kernel's first version (a
+    bitonic sort of next_pow2((K+1)·W) keys): the widths it took."""
+    P2 = 1 << max(0, ((K + 1) * W - 1).bit_length())
+    regions = (128, 128, 128, 6 * W * 4, 6 * W * 4, 5 * W * 4, W * max(H, 1) * 4, W,
+               W * K * 2, P2 * 4, P2 * 2)
+    total = 0
+    for n in regions:
+        total = (total + n + 15) & ~15
+    return total
+
+
+def test_shape_limits_admit_every_earlier_shape():
+    """Every (W, K, H) the first kernel took, the redesigned one takes, so
+    no ``--device-beam`` width that ran on the card falls back to the host
+    beam."""
+    from speecht_tpu_torch.ops import beam_device_cuda
+
+    widths = (1, 2, 31, 32, 33, 64, 100, 127, 128, 255, 256, 500, 512, 513, 700,
+              1000, 1023, 1024)
+    taken = 0
+    for W, K, H in itertools.product(widths, range(1, 33), range(0, 6)):
+        if (K + 1) * W <= 0xFFFF and _first_kernel_smem_bytes(W, K, H) <= 232448:
+            taken += 1
+            assert beam_device_cuda.shape_limits(W, K, H) == [], (W, K, H)
+    assert taken > 3000

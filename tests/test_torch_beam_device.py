@@ -22,6 +22,8 @@ log-probs lie on the CPU), and through the port's host C++ beam:
   in the pruned regime at most 4 of 20 rows differ from the host beam,
   each by less than 0.1 under float64 rescoring (JAX's limits); n-best
   hypotheses equal to JAX's, scores within 1e-5 relative;
+- tie-heavy decodes (log-probs rounded to whole nats, so that only the
+  index rule orders the equal totals): ids and n-best equal to JAX's;
 - the on-disk table cache and the budget check.
 
 Every distinct (width, LM, n-best, shape) is one XLA compile of JAX's
@@ -396,6 +398,24 @@ def test_pruned_regime_near_total_agreement(lm_dir, lms):
             sd = _ctc_logp_f64(row, dev) + _lm_bonus_f64(host_lm, dev, *FUSION)
             assert abs(sh - sd) < 0.1, (i, sh, sd)
     assert mismatches <= 4
+
+
+@pytest.mark.parametrize("name", [None, "model.arpa", "order6.arpa"],
+                         ids=["no_lm", "order3", "order6"])
+def test_tie_heavy_decodes_match(lms, name):
+    """Emissions rounded to whole nats (the likeliest char to -0.0): many
+    chars of a frame share a log-prob, so the frame's top-K and the pool's
+    totals tie often and only the index rule (the lower candidate first,
+    as ``lax.top_k``) decides the order. Ids, lengths and the n-best scores
+    equal to JAX's device beam."""
+    logp, lengths = _word_logp(31, 6, 24)
+    logp = np.round(logp).astype(np.float32)
+    top = -np.sort(-logp, axis=-1)[..., :9]  # the top-8 and the next
+    assert (np.diff(top, axis=-1) == 0).any(-1).mean() > 0.9
+    pair = lms[name] if name else None
+    want, got = _decode(8, pair, logp, lengths, FUSION, n_best=4)
+    _assert_same(want[:2], got[:2])
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
 
 
 def test_n_best_matches_jax(lms):

@@ -11,7 +11,8 @@ so the ids and lengths must be equal on every row and the n-best scores
 equal to 1e-6 relative; two kernel calls must be bit-equal. Cases:
 ``chip_smoke.py`` phase 2d's at a smaller batch (the order-3 LM of
 ``chip_smoke.write_lm``, no LM, n-best, W=1024, ragged rows, order-1 and
-order-6 LMs, KenLM-keyed tables), the shape edges (W=1, W=2, W=1024 at
+order-6 LMs, KenLM-keyed tables), tie-heavy emissions with and without
+the LM, W=1024 on full-length rows, the shape edges (W=1, W=2, W=1024 at
 K=8, K=29 at W=128, T=1, every row of length 0), a launch the kernel
 cannot take raising before it is made (a width or an LM table of a shape
 it does not read), and the kernel, never the plain version, taking a
@@ -98,6 +99,27 @@ def test_shape_edges(cuda_device, lm_dirs, W, top_k, lengths):
     lm = _lm(lm_dirs, "order6", cuda_device)
     _check(lm, lengths, cuda_device, seed=W, W=W, top_k=top_k)
     _check(None, lengths, cuda_device, seed=W + 1, W=W, top_k=top_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm_name", ["order3", None], ids=["order3", "no_lm"])
+def test_tie_heavy(cuda_device, lm_dirs, lm_name):
+    """Emissions rounded to whole nats: the pool's totals tie often, so the
+    selection's index rule (the lower candidate first) decides the order."""
+    logp, lengths = chip_smoke.tie_emissions(
+        6, np.random.RandomState(8).randint(130, 231, size=8))
+    result = chip_smoke.check_beam("test", _lm(lm_dirs, lm_name, cuda_device), logp,
+                                   lengths, cuda_device, n_best=4)
+    assert result["ok"]
+
+
+@pytest.mark.cuda
+def test_widest_beam_full_rows(cuda_device, lm_dirs):
+    """W=1024 over rows of the main shape's lengths (the backpointers in
+    global memory, 1024 threads, one candidate rank a thread)."""
+    _check(_lm(lm_dirs, "order3", cuda_device),
+           np.random.RandomState(9).randint(130, 231, size=6), cuda_device, seed=9,
+           W=1024)
 
 
 @pytest.mark.cuda
