@@ -229,7 +229,29 @@ drives the port's main path through its normal entry point, and fails
    phase-3d LM): how many rows decode alike; every row decoded otherwise
    must be a near tie, its two hypotheses within 0.1 of each other under
    float64 rescoring (the bound of JAX's ``tests/test_beam_device.py``).
-5. One JSON line listing every kernel, then the result line
+5. The drills (``speecht_tpu_torch/tools/``), at full width with random
+   initial weights from the port's seed, in the run's work directory:
+   first phases 2 and 2b's comparisons at the drills' shapes (B=16, 64
+   and 320 logit frames, labels of 6-28 letters); then
+   ``synthetic_convergence`` (400 + 40 tone-speech utterances, ``train``
+   600 steps at B=16 on the 128-frame buckets, then the held-out split
+   greedy, with the host beam and its unigram LM, ``--device-beam`` and
+   ``--device-beam --rescore 8``: the JAX tool's four gates) and
+   ``train_features_check`` (``--spec-augment`` with narrow masks and
+   ``--grad-accum 2`` for 1200 global steps, the first launch a process
+   of its own stopped by SIGTERM after its first interval line, the
+   crash-save at a step S, the relaunch for 1200 - S steps; the gates:
+   greedy LER < 0.05 and the relaunch's facts). Each in-process CLI run's
+   launch counts are set to 0 just before and read just after:
+   ``ctc_alpha`` and ``ctc_beta`` once a train step, ``ctc_alpha`` once an
+   evaluate batch, ``beam_device`` once a ``--device-beam`` batch, conv0
+   never. Then the trained model's train step on one batch of the
+   512-frame bucket by CUDA events beside the drill's period, and its
+   emissions: the share of frames the collapse keeps, the beam kernel's
+   and the host beam's ms on one batch, and every held-out row through
+   both beams (the rows decoded otherwise with their float64 scores). A
+   gate that fails fails the run.
+6. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
@@ -4058,6 +4080,292 @@ def parity_audio(host_dir, device_dir, weights):
     check(worst <= 1.0, "parity audio: the --device cache differs from the host cache")
 
 
+# -- phase 5: the drills -------------------------------------------------------
+
+# the drills' batches: B=16, time padded to a multiple of 128 frames (logit
+# frames 64-320); the device train step is timed on the 512-frame bucket
+DRILL_BATCH, DRILL_BUCKET, DRILL_STEP_BUCKET = 16, 128, 512
+DRILL_LAUNCH_TIMEOUT_S = 600
+# the beam weights of the drills' LM paths (lm, word count, valid word count)
+DRILL_BEAM_WEIGHTS = (0.4, 0.0, 2.3)
+DRILL_ROW_LINES = ("expected: ", "decoded: ", "LED: ")
+
+
+def drill_ctc_shapes(device):
+    """Phases 2 and 2b's comparisons at the drills' shapes (B=16, 64 and
+    320 logit frames, labels of 6-28 letters in the label widths the
+    128- and 640-frame buckets give)."""
+    rng = np.random.RandomState(9)
+    for name, T, L, frames in (("drill shape T=64", 64, 32, (59, 65)),
+                               ("drill shape T=320", 320, 160, (60, 321))):
+        inputs = ctc_inputs(8, B=DRILL_BATCH, T=T, L=L, label_range=(6, 29),
+                            frame_range=frames)
+        check_ctc(name, inputs, device, time_it=False, history=True)
+        check_beta(name, inputs, rng.uniform(0.5, 1.5, DRILL_BATCH).astype(np.float32),
+                   device, time_it=False)
+
+
+@contextlib.contextmanager
+def counted_cli(kernels):
+    """Each CLI run of a drill (``synthetic_convergence.run_cli``, which
+    both drills call) with the launch counts set to 0 just before and read
+    just after; yields [(argv, counts)]."""
+    from speecht_tpu_torch.tools import synthetic_convergence as module
+
+    runs = []
+    run_cli_ = module.run_cli
+
+    def counted(argv):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        out = run_cli_(argv)
+        torch.cuda.synchronize()
+        runs.append((argv, {k.name: k.launches for k in kernels}))
+        return out
+
+    module.run_cli = counted
+    try:
+        yield runs
+    finally:
+        module.run_cli = run_cli_
+
+
+def drill_path_name(drill, argv):
+    """``<drill>: evaluate --language-model --device-beam --rescore 8``..."""
+    words = [argv[0]]
+    for flag in ("--spec-augment", "--grad-accum", "--language-model", "--device-beam",
+                 "--rescore"):
+        if flag in argv:
+            value = argv[argv.index(flag) + 1] if flag in ("--grad-accum", "--rescore") else ""
+            words.append(f"{flag} {value}".strip())
+    return f"{drill}: " + " ".join(words)
+
+
+def print_drill_log(out):
+    """A drill's output without the per-row lines of its evaluates."""
+    for line in out.splitlines():
+        if line and not line.startswith(DRILL_ROW_LINES):
+            print(f"drills: {line}")
+
+
+def drill_model(root, run_name, device, train=False):
+    """The full-width model and its train state restored from the drill's
+    newest checkpoint under ``<root>/train/<run_name>``."""
+    from speecht_tpu_torch.data.features import feature_size
+    from speecht_tpu_torch.execution import build_model
+    from speecht_tpu_torch.train.checkpoint import CheckpointManager
+    from speecht_tpu_torch.train.state import create_train_state, make_optimizer
+
+    model = build_model(feature_size("power"), types.SimpleNamespace()).to(device)
+    tx = make_optimizer()
+    state = create_train_state(dict(model.named_parameters()), tx, 3e-4)
+    # the checkpoint's tensors are copied into the model's own parameters
+    state = CheckpointManager(os.path.join(root, "train", run_name)).restore(state)
+    return (model.train() if train else model.eval()), tx, state
+
+
+def drill_samples(root, split):
+    from speecht_tpu_torch.data.reader import SpeechCorpusReader
+
+    return list(SpeechCorpusReader(os.path.join(root, "data")).load_samples(
+        split, feature_type="power", seed=0))
+
+
+def drill_device_step(root, period_ms, card, device=torch.device("cuda")):
+    """The trained drill model's train step on one resident batch of the
+    512-frame bucket (B=16) by CUDA events, beside the drill's period."""
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.train import step as tstep
+
+    model, tx, state = drill_model(root, "synth", device, train=True)
+    rows = [s for s in drill_samples(root, "train")
+            if DRILL_STEP_BUCKET - DRILL_BUCKET < len(s[0]) <= DRILL_STEP_BUCKET]
+    check(len(rows) >= DRILL_BATCH, f"drills: {len(rows)} rows in the 512-frame bucket")
+    batch = to_device(build_batch(rows[:DRILL_BATCH], time_bucket=DRILL_BUCKET), device)
+    step = tstep.make_train_step_acc(model, tx)
+    box = [state, tstep.init_metrics_acc(device)]
+
+    def one():
+        box[0], box[1] = step(box[0], box[1], batch)
+
+    ms = time_ms(one, iters=10, warmup=2)
+    flop = 3 * FORWARD_FLOP_PER_UTT * DRILL_STEP_BUCKET / 1024 * DRILL_BATCH
+    print(f"drills: train step (device) B={DRILL_BATCH} T={batch.features.shape[1]} bf16, "
+          f"the trained model: {ms!r} ms by CUDA events, {flop / 1e12:.3f} TFLOP "
+          f"(computed: 3 x 25.3 GFLOP x 512/1024 an utterance) = "
+          f"{flop / (ms * 1e-3) / PEAK_BF16_OPS_PER_S * 100:.2f}% of 989 TFLOP/s dense "
+          f"bf16; the drill's period {period_ms!r} ms/step (B={DRILL_BATCH}, buckets "
+          f"128-640, step calls 2 to the last); on {card}")
+    return ms
+
+
+def drill_emissions(root, card, device=torch.device("cuda")):
+    """The beams on the trained model's emissions: on one evaluate batch
+    (B=16) the share of frames the blank collapse keeps, the beam kernel's
+    ms (fused with the LM, and the n-best of ``--rescore 8``) by CUDA
+    events and the host beam's and the rescoring path's ms on the host
+    clock; then every held-out row through the host beam and the device
+    beam, the rows decoded otherwise printed with their float64 scores."""
+    from speecht_tpu_torch import native, vocabulary
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+    from speecht_tpu_torch.tools.synthetic_corpus import WORDS
+
+    model, _tx, _state = drill_model(root, "synth", device)
+    lm_dir = os.path.join(root, "lm")
+    lm_w, wc_w, vwc_w = DRILL_BEAM_WEIGHTS
+    config = dict(language_model=lm_dir, lm_weight=lm_w, word_count_weight=wc_w,
+                  valid_word_count_weight=vwc_w)
+    host = BeamSearchDecoder(model, LanguageModelConfig(**config))
+    fused = BeamSearchDecoder(model, LanguageModelConfig(**config, device_beam=True))
+    rescore = BeamSearchDecoder(
+        model, LanguageModelConfig(**config, device_beam=True, rescore_n=8))
+    samples = drill_samples(root, "test")
+
+    def host_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    try:
+        batch = build_batch(samples[:DRILL_BATCH], time_bucket=DRILL_BUCKET)
+        _loss, logp, lengths = fused.device_part(to_device(batch, device))
+        host_lengths = lengths.cpu().numpy()
+        kept = kept_share(lengths.cpu(), batch.seq_lengths)
+        t_bucket = min(logp.shape[1], max(32, -(-int(host_lengths.max()) // 32) * 32))
+        emissions = logp[:, :t_bucket].contiguous()
+        fused_ms = time_ms(lambda: fused._beam_fn(emissions, lengths, *DRILL_BEAM_WEIGHTS),
+                           iters=10)
+        nbest_ms = time_ms(lambda: rescore._beam_fn(emissions, lengths, 0.0, 0.0, 0.0),
+                           iters=10)
+        host_logp = logp.cpu().numpy()
+        host_beam_ms = host_ms(lambda: host.decode_emissions(host_logp, host_lengths))
+        rescore_ms = host_ms(lambda: rescore.decode_emissions(logp, host_lengths))
+        print(f"drills: trained emissions, one evaluate batch (B={DRILL_BATCH}, "
+              f"T={batch.features.shape[1]}): the collapse keeps {kept!r} of the frames "
+              f"({int(host_lengths.min())}-{int(host_lengths.max())} a row); --device-beam: "
+              f"the beam kernel {fused_ms!r} ms a batch (W={BEAM_WIDTH}, K={BEAM_TOP_K}, "
+              f"the order-1 LM of {len(WORDS)} words and <unk>, T={t_bucket}); "
+              f"--rescore 8: the n-best kernel {nbest_ms!r} ms, the whole rescoring "
+              f"decode {rescore_ms!r} ms (3 calls); the host beam {host_beam_ms!r} ms "
+              f"a batch (3 calls, {host.num_threads} threads); on {card}")
+
+        # every held-out row: the host beam against the device beam
+        batch = build_batch(samples, time_bucket=DRILL_BUCKET)
+        _loss, logp, lengths = fused.device_part(to_device(batch, device))
+        host_lengths = lengths.cpu().numpy()
+        all_kept = kept_share(lengths.cpu(), batch.seq_lengths)
+        host_logp = logp.cpu().numpy()
+        ids_h, len_h = host.decode_emissions(host_logp, host_lengths)
+        ids_d, len_d = fused.decode_emissions(logp, host_lengths)
+    finally:
+        for decoder in (host, fused, rescore):
+            decoder.close()
+    host_lm = native.NGramLM(os.path.join(lm_dir, "model.arpa"),
+                             os.path.join(lm_dir, "vocabulary"))
+    differ = []
+    for i in range(len(samples)):
+        h, d = ids_h[i, :len_h[i]].tolist(), ids_d[i, :len_d[i]].tolist()
+        if h == d:
+            continue
+        row = host_logp[i, :host_lengths[i]].astype(np.float64)
+        scores = [ctc_logp_f64(row, x) + lm_bonus_f64(host_lm, x, *DRILL_BEAM_WEIGHTS)
+                  for x in (h, d)]
+        differ.append(i)
+        expected = vocabulary.ids_to_sentence(batch.labels[i, :batch.label_lengths[i]])
+        print(f"drills: row {i} decoded otherwise: expected {expected!r}; host beam "
+              f"{vocabulary.ids_to_sentence(h)!r} (float64 score {scores[0]!r}); device "
+              f"beam {vocabulary.ids_to_sentence(d)!r} ({scores[1]!r})")
+    print(f"drills: trained emissions, all {len(samples)} held-out rows: the collapse "
+          f"keeps {all_kept!r} of the frames; the host beam and the device beam decode "
+          f"{len(samples) - len(differ)}/{len(samples)} rows alike")
+    return {"kept_share": kept, "kept_share_all_rows": all_kept,
+            "beam_kernel_ms": fused_ms, "nbest_kernel_ms": nbest_ms,
+            "host_beam_ms": host_beam_ms, "rescore_decode_ms": rescore_ms,
+            "rows_alike": len(samples) - len(differ)}
+
+
+def drills_path(work, kernels, card):
+    """Phase 5: ``speecht_tpu_torch.tools.synthetic_convergence`` and
+    ``train_features_check`` at full width in ``<work>/drill*``, each
+    CLI run's launch counts set to 0 just before and read just after;
+    then the trained model's device train step and its emissions through
+    the beams. Returns {path: launch counts}."""
+    import functools
+
+    from speecht_tpu_torch.tools import synthetic_convergence, train_features_check
+
+    t_phase = time.perf_counter()
+    drill_ctc_shapes(torch.device("cuda"))
+    root = os.path.join(work, "drill")
+    buf = io.StringIO()
+    with counted_cli(kernels) as plain_runs, step_marks() as marks:
+        with contextlib.redirect_stdout(buf):
+            plain = synthetic_convergence.main(root=root)
+    print_drill_log(buf.getvalue())
+    period_ms = step_period_ms(marks)
+    features_root = os.path.join(work, "drill_features")
+    buf = io.StringIO()
+    with counted_cli(kernels) as feature_runs:
+        with contextlib.redirect_stdout(buf):
+            features = train_features_check.main(
+                root=features_root, launch=functools.partial(
+                    train_features_check.signal_launch, timeout=DRILL_LAUNCH_TIMEOUT_S))
+    print_drill_log(buf.getvalue())
+
+    n_test = synthetic_convergence.N_TEST
+    batches = -(-n_test // DRILL_BATCH)
+    facts = features["relaunch"]
+    runs = {}
+    for drill, found in (("synthetic convergence", plain_runs),
+                         ("train features", feature_runs)):
+        for argv, n in found:
+            name = drill_path_name(drill, argv)
+            if argv[0] == "train":
+                steps = int(argv[argv.index("--max-steps") + 1])
+                if drill == "train features":
+                    name += f" (relaunch at step {facts['crash_step']})"
+                want = {"ctc_alpha": steps, "ctc_beta": steps, "conv0": 0, "beam_device": 0}
+            else:
+                want = {"ctc_alpha": batches, "ctc_beta": 0, "conv0": 0,
+                        "beam_device": batches if "--device-beam" in argv else 0}
+            runs[name] = n
+            check(n == want, f"drills: {name} launched {n}, not {want}")
+    # the plain drill's train and 4 evaluates; the relaunch and 1 evaluate
+    check(len(plain_runs) == 5 and len(feature_runs) == 2,
+          f"drills: counted the CLI runs {list(runs)}")
+    print(f"drills: kernel launches {runs} (the first train-features launch runs in a "
+          f"process of its own: its launches are that process's)")
+    for key, path in (("greedy", "evaluate"), ("host_lm", "evaluate --language-model"),
+                      ("device_lm", "evaluate --language-model --device-beam"),
+                      ("rescore", "evaluate --language-model --device-beam --rescore 8")):
+        r = plain[key]
+        print(f"drills: synthetic convergence, held-out {path} ({r['rows']} rows): LER "
+              f"{r['ler']!r} WER {r['wer']!r} (the CLI's sums in its read order: "
+              f"{r['cli_ler']!r}, {r['cli_wer']!r}) in {r['seconds']!r} s")
+    print(f"drills: synthetic convergence, train {len(marks)} steps in "
+          f"{plain['train_seconds']!r} s with set-up; interval losses "
+          f"{plain['interval_losses']}; gates {plain['gates']}")
+    print(f"drills: train features, held-out greedy LER {features['ler']!r} WER "
+          f"{features['wer']!r} (the CLI's: {features['cli_ler']!r}, "
+          f"{features['cli_wer']!r}); relaunch: S={facts['crash_step']} (optimizer step "
+          f"{facts['saved_optimizer_step']}), restored learning rate "
+          f"{facts['restored_learning_rate']!r}, interval loss {facts['loss_before']} "
+          f"before and {facts['loss_after']} after, optimizer step "
+          f"{facts['final_optimizer_step']} at the end; interval losses "
+          f"{facts['interval_losses']}; {facts['checks']}; seconds {features['seconds']}; "
+          f"gates {features['gates']}")
+    drill_device_step(root, period_ms, card)
+    drill_emissions(root, card)
+    print(f"drills: phase 5 wall time {time.perf_counter() - t_phase:.1f} s")
+    check(plain["ok"], f"drills: a synthetic convergence gate failed: {plain['gates']}")
+    check(features["ok"], f"drills: a train features gate failed: {features['gates']}")
+    return runs
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -4222,8 +4530,11 @@ def main() -> int:
                                            kernels, card)
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
+        # 5. the drills: a model trained to held-out convergence, decoded
+        # four ways; the training features across a SIGTERM and a relaunch
+        drill_runs = drills_path(work, kernels, card)
 
-    # 5. kernels line, then the result line
+    # 6. kernels line, then the result line
     alpha_entry = kernel_entry(
         "ctc_alpha", "speecht_tpu_torch/csrc/ctc_alpha.cu",
         "speecht_tpu/ops/ctc_pallas.py:145", eval_launches["ctc_alpha"], alpha_main,
@@ -4292,6 +4603,9 @@ def main() -> int:
     for entry in (alpha_entry, conv0_entry, beam_entry):
         entry["launches_by_path"].update(
             {path: record_runs[path][entry["name"]] for path in serving_paths})
+    for entry in (alpha_entry, beta_entry, conv0_entry, beam_entry):
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in drill_runs.items()})
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["us_per_frame"] = beam_main["us_per_frame"]
     beam_entry["lm_share"] = beam_main["lm_share"]

@@ -1,0 +1,21 @@
+"""Hardware-validation drills of the port: the counterparts of the repo's
+``tools/`` drills, driving ``speecht_tpu_torch.cli.CLI`` end to end.
+
+- ``synthetic_corpus``: the tone-speech corpus (each character a tone
+  burst) and its unigram LM, the same files as ``tools/synthetic_convergence.py``
+  writes for the same seed;
+- ``synthetic_convergence``: train the full-width model on that corpus,
+  then check the held-out split greedy, on the host beam with the LM, with
+  ``--device-beam`` and with ``--device-beam --rescore 8``;
+- ``train_features_check``: ``tools/train_features_check.py``'s gate
+  (``--spec-augment`` with narrow masks, ``--grad-accum 2``, greedy LER
+  < 0.05) on the same synthetic corpus, with a SIGTERM crash-save and a
+  relaunch in the middle.
+
+Each runs on the card unless ``--device cpu`` is given. ``tools/``'s
+``overfit_check``, ``train_features_check`` on its own corpus,
+``device_beam_check`` and ``record_check`` train on one bundled
+LibriSpeech utterance that the repository does not hold, so they wait for
+it; ``librispeech_scale_soak`` and ``hard_search_drill`` take hours of
+card time.
+"""

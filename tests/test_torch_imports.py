@@ -1,4 +1,6 @@
-"""The port imports nothing of JAX and nothing of the JAX package.
+"""The port imports nothing of JAX and nothing of the JAX package, nor
+the repo's ``tools/`` drills (the port keeps its own in
+``speecht_tpu_torch/tools``).
 
 Checked twice: an AST scan of every source of ``speecht_tpu_torch`` and of
 ``chip_smoke.py``, and a fresh interpreter that imports every module of
@@ -17,7 +19,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "speecht_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speecht_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speecht_tpu", "tools")
 
 
 def _sources():
@@ -227,3 +229,14 @@ def test_native_source_includes_nothing_outside_its_directory(path):
             assert name in here, f"{path} includes {name}"
         else:
             assert "/" not in name and "." not in name, f"{path} includes <{name}>"
+
+
+def test_every_module_of_the_drills_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.tools",
+        "speecht_tpu_torch.tools.synthetic_corpus",
+        "speecht_tpu_torch.tools.synthetic_convergence",
+        "speecht_tpu_torch.tools.train_features_check",
+    ):
+        assert m in mods
