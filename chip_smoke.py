@@ -251,12 +251,55 @@ drives the port's main path through its normal entry point, and fails
    and the host beam's ms on one batch, and every held-out row through
    both beams (the rows decoded otherwise with their float64 scores). A
    gate that fails fails the run.
-6. One JSON line listing every kernel, then the result line
+6a. The four kernels under the sanitizers, in a worker process
+   (``--sanitize-worker``): ``ctc_alpha`` with and without the history
+   on the edge rows and at B=4, ``ctc_beta`` on both, conv0 bf16 and
+   float32 at T=50 and T=1000, ``beam_device`` at B=4 with the phase-2d
+   LM (and its n-best), each against its plain version. The worker runs
+   under ``compute-sanitizer`` (found beside ``nvcc``; missing, the run
+   fails) ``--tool memcheck``, ``synccheck`` and ``racecheck`` with
+   ``PYTORCH_NO_CUDA_MEMORY_CACHING=1``: memcheck's and synccheck's errors
+   fail the run, racecheck's report is printed, and a tool that refuses
+   the card is reported as not run. Then the worker once more with every
+   CUDA allocation through a guard allocator (built here with ``nvcc``:
+   64 KiB of 0xFF poison on each side of each allocation, the allocation
+   poisoned too, both guards read back at each free): a changed guard
+   byte (a write out of bounds) or a case that differs (a read of
+   memory nothing wrote) fails the run. Then each kernel 8 times on the
+   same inputs, every other call beside matmuls on a second stream,
+   every result bit-equal to the first.
+6b. ``speecht_tpu_torch.tools.native_sanitize_check`` on FLACs of every
+   layout ``write_flac`` writes (``sanitizer_flacs``), in a process of its
+   own beside 6a, with the card machine's g++: the host C++ built with
+   ASan and UBSan, every ``stt_`` entry point and three fuzz passes; it
+   must print ``ALL ASAN CHECKS PASSED``.
+7. The hard corpus (``speecht_tpu_torch/tools/hard_corpus.py``) at full
+   width from the port's seeded initial weights: its 2000 + 128 + 128
+   utterances written beside 6a and 6b in a process of its own, then the
+   pilot at JAX's settings (``train --spec-augment --grad-accum 2
+   --group-by-length``, B=64, 256-frame buckets, 1500 steps in 3
+   segments, a greedy dev evaluate after each, then greedy and with the
+   LM and ``--device-beam``), then ``hard_search_drill --device-beam``
+   (60 generations, the mutations seeded here and the seed printed; the
+   seed's and the best candidate's weights on the test split). Each CLI
+   run's launch counts are set to 0 just before and read just after:
+   ``ctc_alpha`` and ``ctc_beta`` once a train micro-step, ``ctc_alpha``
+   once an evaluate or search dev batch, ``beam_device`` once a
+   ``--device-beam`` batch and once a candidate's batch, conv0 never.
+   Printed: each segment's interval losses, restored optimizer step and
+   learning rate and period; the dev rates greedy and with the LM; the
+   drill's scores, trajectory and test rates; the trained model's device
+   step at the largest bucket; the share of frames the collapse keeps on
+   its emissions and the beam kernel's ms a batch of 64 there; the wall
+   times. Gates: the drill's two (dev and test improved) and the pilot's
+   greedy dev LER below 0.5.
+8. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
 ``--rank-worker SPEC`` it is one rank of phase 3j or 3k (started by the phase
-itself through ``torchrun``), and prints no result line.
+itself through ``torchrun``), with ``--sanitize-worker SPEC`` phase 6a's
+worker, and neither prints a result line.
 """
 
 from __future__ import annotations
@@ -4142,11 +4185,11 @@ def drill_path_name(drill, argv):
     return f"{drill}: " + " ".join(words)
 
 
-def print_drill_log(out):
+def print_drill_log(out, prefix="drills"):
     """A drill's output without the per-row lines of its evaluates."""
     for line in out.splitlines():
         if line and not line.startswith(DRILL_ROW_LINES):
-            print(f"drills: {line}")
+            print(f"{prefix}: {line}")
 
 
 def drill_model(root, run_name, device, train=False):
@@ -4366,6 +4409,568 @@ def drills_path(work, kernels, card):
     check(features["ok"], f"drills: a train features gate failed: {features['gates']}")
     return runs
 
+# -- phase 6a: the kernels under compute-sanitizer and the guard allocator -----
+
+SANITIZER_TOOLS = ("memcheck", "synccheck", "racecheck")
+SANITIZE_TIMEOUT_S = 600
+SANITIZER_REFUSAL = "Device not supported"
+SANITIZE_REPEATS = 8
+SANITIZE_DONE = "sanitize worker: done"
+# the guard allocator's poison: 0xFF bytes are a NaN in float32 and bf16
+# and -1 in int32, so a read of memory no kernel wrote shows in a result
+GUARD_SOURCE = r"""
+// A CUDA allocator for torch.cuda.memory.CUDAPluggableAllocator that puts
+// 64 KiB of poison (0xFF) before and after every allocation and poisons the
+// allocation itself. Each free (and guard_check_all) reads both guards back
+// after a device synchronize: a byte that changed is a write out of bounds.
+#include <cuda_runtime.h>
+#include <sys/types.h>
+#include <cstdio>
+#include <mutex>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+constexpr size_t kGuard = 1 << 16;
+constexpr unsigned char kPoison = 0xFF;
+struct Block { char* base; size_t size; };
+std::mutex mu;
+std::unordered_map<void*, Block> live;
+long long n_alloc = 0, n_checked = 0, n_bad = 0;
+char first_bad[256] = "";
+
+void check_block(void* user, const Block& b) {
+  std::vector<unsigned char> host(kGuard);
+  for (int side = 0; side < 2; ++side) {
+    const char* dev = side ? b.base + kGuard + b.size : b.base;
+    if (cudaMemcpy(host.data(), dev, kGuard, cudaMemcpyDeviceToHost) != cudaSuccess) {
+      ++n_bad;
+      snprintf(first_bad, sizeof first_bad, "cudaMemcpy of a guard failed");
+      return;
+    }
+    for (size_t i = 0; i < kGuard; ++i) {
+      if (host[i] != kPoison) {
+        if (!n_bad++)
+          snprintf(first_bad, sizeof first_bad,
+                   "allocation %p of %zu bytes: byte %zu %s it is 0x%02x",
+                   user, b.size, side ? i : kGuard - i, side ? "after" : "before",
+                   host[i]);
+        break;
+      }
+    }
+  }
+  ++n_checked;
+}
+}  // namespace
+
+extern "C" void* guard_malloc(ssize_t size, int device, cudaStream_t stream) {
+  char* base = nullptr;
+  size_t total = (size_t)size + 2 * kGuard;
+  if (cudaMalloc(&base, total) != cudaSuccess) return nullptr;
+  cudaMemset(base, kPoison, total);
+  cudaDeviceSynchronize();
+  std::lock_guard<std::mutex> lock(mu);
+  ++n_alloc;
+  live[base + kGuard] = Block{base, (size_t)size};
+  return base + kGuard;
+}
+
+extern "C" void guard_free(void* ptr, ssize_t size, int device, cudaStream_t stream) {
+  cudaDeviceSynchronize();
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = live.find(ptr);
+  if (it == live.end()) {
+    if (!n_bad++) snprintf(first_bad, sizeof first_bad, "free of unknown %p", ptr);
+    return;
+  }
+  check_block(ptr, it->second);
+  cudaFree(it->second.base);
+  live.erase(it);
+}
+
+extern "C" long long guard_check_all() {
+  cudaDeviceSynchronize();
+  std::lock_guard<std::mutex> lock(mu);
+  for (auto& kv : live) check_block(kv.first, kv.second);
+  return n_bad;
+}
+extern "C" long long guard_allocations() { return n_alloc; }
+extern "C" long long guard_checks() { return n_checked; }
+extern "C" long long guard_violations() { return n_bad; }
+extern "C" const char* guard_first_violation() { return first_bad; }
+"""
+
+
+def build_guard(work):
+    """The guard allocator, compiled with nvcc into ``work``."""
+    from speecht_tpu_torch.ops import cuda_build
+
+    src = os.path.join(work, "guard_alloc.cu")
+    lib = os.path.join(work, "libguard_alloc.so")
+    with open(src, "w") as f:
+        f.write(GUARD_SOURCE)
+    proc = subprocess.run([cuda_build.nvcc(), "-O2", "-std=c++17", "-shared", "-Xcompiler",
+                           "-fPIC", "-o", lib, src], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"the guard allocator did not build:\n{proc.stderr}")
+    return lib
+
+
+def sanitize_cases(device, lm_dir):
+    """Each kernel at small shapes against its plain version (the checks of
+    phases 2-2d without their timings): ctc_alpha (with and without the
+    history) and ctc_beta on the edge rows and at B=4, conv0 bf16 and
+    float32 at T=50 and T=1000, beam_device at B=4 with the phase-2d LM,
+    its best path and its n-best. Returns the number of cases."""
+    from speecht_tpu_torch.ops import beam_device
+
+    small = ctc_inputs(10, B=4, T=64, L=24, label_range=(5, 24), frame_range=(30, 65))
+    lm = beam_device.DeviceLM(os.path.join(lm_dir, "model.arpa"),
+                              os.path.join(lm_dir, "vocabulary"), device=device)
+    logp, lengths = beam_emissions(4, np.random.RandomState(4).randint(*BEAM_FRAMES, size=4))
+    cases = [
+        lambda: check_ctc("sanitize edge rows", edge_inputs(), device, time_it=False,
+                          history=True),
+        lambda: check_ctc("sanitize B=4", small, device, time_it=False, history=True),
+        lambda: check_beta("sanitize edge rows", edge_inputs(), edge_grad(7), device,
+                           time_it=False),
+        lambda: check_beta("sanitize B=4", small, np.linspace(0.5, 1.5, 4).astype(np.float32),
+                           device, time_it=False),
+        *(lambda T=T, dtype=dtype: check_conv0(f"sanitize T={T}", 2, T, 128, 250, dtype,
+                                               device, time_it=False)
+          for T in (50, 1000) for dtype in (torch.bfloat16, torch.float32)),
+        lambda: check_beam("sanitize B=4", lm, logp, lengths, device),
+        lambda: check_beam("sanitize B=4 n_best=4", lm, logp, lengths, device, n_best=4),
+    ]
+    for case in cases:
+        case()
+    return len(cases)
+
+
+def repeat_probe(device, lm_dir, repeats=SANITIZE_REPEATS):
+    """Each kernel ``repeats`` times on the same inputs, every other call
+    beside bf16 matmuls on a second stream that contend for the SMs (in
+    this process: the guard allocator synchronizes the card at every
+    allocation): every result bit-equal to the first (no kernel has
+    atomics, so a difference is a race in a ring, a barrier or the beam's
+    shared tables)."""
+    from speecht_tpu_torch.ops import beam_device, conv0_cuda, ctc_cuda
+
+    logits, logit_lengths, labels, label_lengths = (
+        torch.from_numpy(a).to(device) for a in ctc_inputs(
+            11, B=8, T=320, L=160, label_range=(20, 120), frame_range=(200, 321)))
+    logp = torch.log_softmax(logits, dim=-1).contiguous()
+    T, B, S = logp.shape[1], logp.shape[0], 2 * labels.shape[1] + 1
+    g = torch.linspace(0.5, 1.5, B, device=device)
+
+    def alpha():
+        hist = torch.empty(T, B, S, device=device)
+        loss = ctc_cuda.CTC_ALPHA(logp, logit_lengths, labels, label_lengths, hist)
+        return loss, hist
+
+    def beta():
+        loss, hist = alpha()
+        return ctc_cuda.CTC_BETA(logp, logit_lengths, labels, label_lengths, hist, loss, g)
+
+    x, w, b = conv0_inputs(12, 2, 1000, 128, 250, torch.bfloat16, device)
+    lm = beam_device.DeviceLM(os.path.join(lm_dir, "model.arpa"),
+                              os.path.join(lm_dir, "vocabulary"), device=device)
+    beam_fn = beam_device.make_device_beam_search(BEAM_WIDTH, lm=lm, prune_top_k=BEAM_TOP_K,
+                                                  n_best=4)
+    blogp, blengths = beam_emissions(5, np.random.RandomState(5).randint(*BEAM_FRAMES, size=4))
+    bx, bn = torch.from_numpy(blogp).to(device), torch.from_numpy(blengths).to(device)
+    side = torch.cuda.Stream(device)
+    load = torch.randn(4096, 4096, device=device, dtype=torch.bfloat16)
+    product = torch.empty_like(load)
+    for name, fn in (("ctc_alpha", alpha), ("ctc_beta", beta),
+                     ("conv0", lambda: conv0_cuda.CONV0(x, w, b)),
+                     ("beam_device", lambda: beam_fn(bx, bn, *BEAM_WEIGHTS))):
+        first = fn()
+        first = first if isinstance(first, tuple) else (first,)
+        differ = 0
+        for i in range(repeats):
+            if i % 2:
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    for _ in range(20):
+                        torch.matmul(load, load, out=product)
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            torch.cuda.synchronize()
+            differ += not all(torch.equal(a, c) for a, c in zip(first, out))
+        print(f"sanitize repeat {name}: {repeats} calls, half of them beside matmuls on a "
+              f"second stream: {repeats - differ}/{repeats} bit-equal to the first")
+        check(differ == 0, f"sanitize: {name} differs from call to call")
+
+
+def sanitize_worker(spec_path: str) -> int:
+    """``--sanitize-worker SPEC``: the kernels of phase 6a in a process of
+    their own; with a guard library in the spec every CUDA allocation goes
+    through it (set before the first allocation), and the process ends
+    without tearing down CUDA (``os._exit``) once the guards are checked."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    guard = None
+    if spec.get("guard_lib"):
+        import ctypes
+
+        torch.cuda.memory.change_current_allocator(torch.cuda.memory.CUDAPluggableAllocator(
+            spec["guard_lib"], "guard_malloc", "guard_free"))
+        guard = ctypes.CDLL(spec["guard_lib"])
+        for fn in ("guard_check_all", "guard_allocations", "guard_checks",
+                   "guard_violations"):
+            getattr(guard, fn).restype = ctypes.c_longlong
+        guard.guard_first_violation.restype = ctypes.c_char_p
+    os.environ["SPEECHT_DEVICE_LM_CACHE"] = spec["device_lm_cache"]
+    device = torch.device("cuda")
+    cases = sanitize_cases(device, spec["lm_dir"])
+    if guard is not None:
+        bad = guard.guard_check_all()
+        print(f"sanitize guard allocator: {guard.guard_allocations()} allocations, "
+              f"{guard.guard_checks()} guard checks, {bad} out-of-bounds writes"
+              + (f" (first: {guard.guard_first_violation().decode()})" if bad else ""))
+        check(bad == 0, "sanitize: a kernel wrote outside its allocations")
+    print(f"{SANITIZE_DONE}: {cases} kernel cases equal to their plain versions", flush=True)
+    if guard is not None:
+        os._exit(0)
+    return 0
+
+
+def sanitizer_binary():
+    from speecht_tpu_torch.ops import cuda_build
+
+    path = os.path.join(os.path.dirname(cuda_build.nvcc()), "compute-sanitizer")
+    check(os.access(path, os.X_OK), f"compute-sanitizer is not beside nvcc ({path})")
+    return path
+
+
+def run_sanitize_worker(work, spec, name, prefix=()):
+    """The worker under ``prefix`` (a sanitizer's command line, with the
+    caching allocator off: it would hide an overrun inside its pool); its
+    output goes to ``<work>/sanitize-<name>.log``. Returns (exit code,
+    output)."""
+    spec_path = os.path.join(work, f"sanitize-{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, **({"PYTORCH_NO_CUDA_MEMORY_CACHING": "1"} if prefix else {}))
+    proc = subprocess.run([*prefix, sys.executable, os.path.abspath(__file__),
+                           "--sanitize-worker", spec_path], env=env, capture_output=True,
+                          text=True, timeout=SANITIZE_TIMEOUT_S)
+    out = proc.stdout + proc.stderr
+    with open(os.path.join(work, f"sanitize-{name}.log"), "w") as f:
+        f.write(out)
+    return proc.returncode, out
+
+
+def sanitize_phase(work, lm_dir, card):
+    """Phase 6a: the sanitize worker under compute-sanitizer's memcheck,
+    synccheck and racecheck, then under the guard allocator with the repeat
+    probe. A sanitizer's report of an error fails the run (racecheck's
+    hazards are printed); a sanitizer that refuses the card is reported as
+    such, and the guard run, which needs no tool, is the check that runs.
+    Returns {tool: verdict}."""
+    t_phase = time.perf_counter()
+    spec = {"lm_dir": lm_dir, "device_lm_cache": os.environ["SPEECHT_DEVICE_LM_CACHE"]}
+    binary = sanitizer_binary()
+    version = subprocess.run([binary, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+    print(f"sanitize: {binary} ({version[-1] if version else 'no version'})")
+    verdicts = {}
+    for tool in SANITIZER_TOOLS:
+        t0 = time.perf_counter()
+        flags = ["--tool", tool] + ([] if tool == "racecheck" else ["--error-exitcode", "1"])
+        code, out = run_sanitize_worker(work, spec, tool, (binary, *flags))
+        report = [ln for ln in out.splitlines() if ln.startswith("========")]
+        for line in [ln for ln in report if "Host Frame" not in ln][:30]:
+            print(f"sanitize {tool}: {line}")
+        refused = [ln for ln in report if SANITIZER_REFUSAL in ln]
+        passed = SANITIZE_DONE in out
+        if refused:
+            verdicts[tool] = f"not run: the tool refused this card ({refused[0].strip('= ')})"
+        elif tool == "racecheck" and passed:
+            summary = [ln for ln in report if "RACECHECK SUMMARY" in ln]
+            verdicts[tool] = summary[-1].strip("= ") if summary else "no hazard reported"
+        else:
+            check(code == 0 and passed, f"sanitize: {tool} reported errors or the worker "
+                  f"failed (exit {code}); see the lines above")
+            verdicts[tool] = "no error"
+        print(f"sanitize {tool}: {verdicts[tool]} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    code, out = run_sanitize_worker(
+        work, {**spec, "guard_lib": build_guard(work)}, "guard")
+    for line in out.splitlines():
+        if line.startswith(("sanitize ", "ctc_", "conv0 ", "beam_device ")):
+            print(f"sanitize guard: {line}")
+    check(code == 0 and SANITIZE_DONE in out,
+          f"sanitize: the guard run failed (exit {code}):\n{out[-3000:]}")
+    verdicts["guard allocator"] = "no out-of-bounds write, every case equal to its plain version"
+    print(f"sanitize: guard run {time.perf_counter() - t0:.1f} s")
+    repeat_probe(torch.device("cuda"), lm_dir)
+    verdicts["repeat probe"] = f"{SANITIZE_REPEATS} calls a kernel bit-equal"
+    print(f"sanitize: phase 6a wall time "
+          f"{time.perf_counter() - t_phase:.1f} s; {verdicts}; on {card}")
+    return verdicts
+
+
+# -- phase 6b: the native sanitizer drill ---------------------------------------
+
+
+def sanitizer_flacs(directory):
+    """Short 16-bit FLACs in every layout ``write_flac`` writes: FIXED
+    orders 0-4 and verbatim (mono, 16 kHz) and each stereo mode (22.05
+    kHz), 5000 samples in blocks of 1152 (the last one short)."""
+    rng = np.random.RandomState(0)
+    mono = synthetic_speech(rng, 5000)
+    stereo = np.stack([mono, synthetic_speech(rng, 5000)], 1)
+    paths = []
+    for order in range(5):
+        paths.append(os.path.join(directory, f"fixed{order}.flac"))
+        write_flac(paths[-1], mono, 16000, order=order, block_size=1152, partition_order=2)
+    paths.append(os.path.join(directory, "verbatim.flac"))
+    write_flac(paths[-1], mono, 16000, subframe="verbatim", block_size=1152)
+    for mode in ("independent", "left_side", "right_side", "mid_side"):
+        paths.append(os.path.join(directory, f"stereo_{mode}.flac"))
+        write_flac(paths[-1], stereo, 22050, block_size=1152, stereo=mode)
+    return paths
+
+
+def start_native_sanitize(work):
+    """Phase 6b, started: ``python -m speecht_tpu_torch.tools.native_sanitize_check``
+    on ``sanitizer_flacs`` in a process of its own (g++ builds beside the
+    phase-6a runs). Returns (the process, its start time)."""
+    directory = os.path.join(work, "asan")
+    os.makedirs(directory)
+    flacs = sanitizer_flacs(directory)
+    env = dict(os.environ, TMPDIR=directory)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speecht_tpu_torch.tools.native_sanitize_check", "--flac",
+         *flacs], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_native_sanitize(started, card):
+    """Phase 6b, joined: the drill's summary lines; it must print ``ALL ASAN
+    CHECKS PASSED`` and exit 0."""
+    from speecht_tpu_torch.tools import native_sanitize_check
+
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=SANITIZE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in out.splitlines():
+        if line.startswith(("fuzz ", "calls: ", "crc32c ", "lm ok", "kenlm dump", "beam ok",
+                            "npz ok", "the sanitizer", "ALL ")) or "runtime error" in line \
+                or "AddressSanitizer" in line:
+            print(f"native sanitize: {line}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    print(f"native sanitize: {gxx.splitlines()[0] if gxx else 'g++'}; exit {proc.returncode}; "
+          f"phase 6b wall time {time.perf_counter() - t0:.1f} s (beside phase 6a)")
+    check(proc.returncode == 0 and native_sanitize_check.PASSED in out.splitlines(),
+          f"native sanitize: the drill failed:\n{out[-3000:]}")
+
+
+# -- phase 7: the hard corpus on the card ---------------------------------------
+
+HARD_N_TEST = 128
+# the pilot's batch and buckets, and its LM weights (lm, word count, valid word)
+HARD_BATCH, HARD_BUCKET = 64, 256
+HARD_BEAM_WEIGHTS = (0.6, 0.0, 2.3)
+# JAX's pilot reached greedy dev LER 0.05 at step 1500, 0.73 before the
+# alignment set in at step 1000 (TPU record): below 0.5 says it set in
+HARD_GREEDY_LER_GATE = 0.5
+HARD_SEARCH_SEED = 16
+
+
+def hard_args(root):
+    """The pilot's arguments: JAX's defaults, a test split, kept in ``root``."""
+    from speecht_tpu_torch.tools import hard_corpus
+
+    return hard_corpus.parse_args(["pilot", "--n-test", str(HARD_N_TEST), "--keep", root])
+
+
+def timed_hard_corpus(root):
+    """``hard_corpus.write_pilot_corpus`` at the pilot's arguments (in a
+    process of its own, beside phases 6a and 6b); returns (its statistics,
+    seconds, its log)."""
+    from speecht_tpu_torch.tools import hard_corpus
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = hard_corpus.write_pilot_corpus(root, hard_args(root))
+    return stats, time.perf_counter() - t0, buf.getvalue()
+
+
+def hard_device_step(root, card, device=torch.device("cuda")):
+    """The pilot's trained model's train step on the 64 longest training
+    rows, padded to their 256-frame bucket (the largest), by CUDA events."""
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.train import step as tstep
+
+    model, tx, state = drill_model(root, "pilot", device, train=True)
+    rows = sorted(drill_samples(root, "train"), key=lambda s: len(s[0]))[-HARD_BATCH:]
+    batch = to_device(build_batch(rows, time_bucket=HARD_BUCKET), device)
+    step = tstep.make_train_step_acc(model, tx)
+    box = [state, tstep.init_metrics_acc(device)]
+
+    def one():
+        box[0], box[1] = step(box[0], box[1], batch)
+
+    ms = time_ms(one, iters=5, warmup=2)
+    T = batch.features.shape[1]
+    flop = 3 * FORWARD_FLOP_PER_UTT * T / 1024 * HARD_BATCH
+    print(f"hard: train step (device) B={HARD_BATCH} T={T} bf16 (the largest bucket; "
+          f"rows of {len(rows[0][0])}-{len(rows[-1][0])} frames), the trained model, no "
+          f"SpecAugment: {ms!r} ms by CUDA events, {flop / 1e12:.3f} TFLOP (computed: 3 x "
+          f"25.3 GFLOP x {T}/1024 an utterance) = "
+          f"{flop / (ms * 1e-3) / PEAK_BF16_OPS_PER_S * 100:.2f}% of 989 TFLOP/s dense bf16; "
+          f"on {card}")
+    return ms
+
+
+def hard_emissions(root, card, device=torch.device("cuda")):
+    """The trained model's emissions on one dev batch of 64: the share of
+    frames the blank collapse keeps and the beam kernel's ms (the pilot's
+    LM weights, W=100, K=8) by CUDA events."""
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
+
+    model, _tx, _state = drill_model(root, "pilot", device)
+    lm_w, wc_w, vwc_w = HARD_BEAM_WEIGHTS
+    fused = BeamSearchDecoder(model, LanguageModelConfig(
+        language_model=os.path.join(root, "lm"), lm_weight=lm_w, word_count_weight=wc_w,
+        valid_word_count_weight=vwc_w, device_beam=True))
+    try:
+        batch = build_batch(drill_samples(root, "dev")[:HARD_BATCH], time_bucket=HARD_BUCKET)
+        _loss, logp, lengths = fused.device_part(to_device(batch, device))
+        host_lengths = lengths.cpu().numpy()
+        kept = kept_share(lengths.cpu(), batch.seq_lengths)
+        t_bucket = min(logp.shape[1], max(32, -(-int(host_lengths.max()) // 32) * 32))
+        emissions = logp[:, :t_bucket].contiguous()
+        ms = time_ms(lambda: fused._beam_fn(emissions, lengths, *HARD_BEAM_WEIGHTS), iters=10)
+    finally:
+        fused.close()
+    print(f"hard: trained emissions, one dev batch (B={HARD_BATCH}, T={batch.features.shape[1]}"
+          f"): the collapse keeps {kept!r} of the frames ({int(host_lengths.min())}-"
+          f"{int(host_lengths.max())} a row); the beam kernel {ms!r} ms a batch (W="
+          f"{BEAM_WIDTH}, K={BEAM_TOP_K}, the corpus's unigram LM, weights "
+          f"{HARD_BEAM_WEIGHTS}, T={t_bucket}; "
+          f"{ms * 1e3 / max(int(host_lengths.max()), 1):.2f} µs a frame of the longest "
+          f"row); on {card}")
+    return {"kept_share": kept, "beam_kernel_ms": ms,
+            "kept_frames": (int(host_lengths.min()), int(host_lengths.max()))}
+
+
+def hard_launches(drill, found, labels, seg, generations):
+    """{path: launch counts} of phase 7's CLI runs (each path named with
+    its label from ``labels``), each checked: ``ctc_alpha`` and ``ctc_beta``
+    once a train micro-step, ``ctc_alpha`` once an evaluate batch (2 of 64
+    on dev and on test) and once a dev batch of ``search``, ``beam_device``
+    once a ``--device-beam`` batch and once a candidate's batch, conv0
+    never."""
+    check(len(found) == len(labels), f"hard: {len(found)} CLI runs of {drill}, not "
+          f"{len(labels)}")
+    runs = {}
+    for (argv, n), label in zip(found, labels):
+        name = drill_path_name(drill, argv) + (f" ({label})" if label else "")
+        if argv[0] == "train":
+            want = {"ctc_alpha": seg, "ctc_beta": seg, "conv0": 0, "beam_device": 0}
+        else:
+            beams = 2 * (generations + 1) if argv[0] == "search" else 2
+            want = {"ctc_alpha": 2, "ctc_beta": 0, "conv0": 0,
+                    "beam_device": beams if "--device-beam" in argv else 0}
+        runs[name] = n
+        check(n == want, f"hard: {name} launched {n}, not {want}")
+    return runs
+
+
+def hard_path(work, root, corpus, kernels, card):
+    """Phase 7: ``hard_corpus.run_pilot`` on the corpus ``timed_hard_corpus``
+    wrote under ``root`` (1500 steps in 3 segments at full width from the
+    port's seeded initial weights), then ``hard_search_drill.run`` with
+    ``--device-beam`` on it, each CLI run's launch counts set to 0 just
+    before and read just after; then the trained model's device step at
+    the largest bucket and its emissions. Gates: the drill's two, and the
+    pilot's final greedy dev LER below ``HARD_GREEDY_LER_GATE``. Returns
+    {path: launch counts}."""
+    import random
+
+    from speecht_tpu_torch.tools import hard_corpus, hard_search_drill
+
+    t_phase = time.perf_counter()
+    stats, corpus_s, corpus_log = corpus
+    for line in corpus_log.splitlines():
+        print(f"hard: {line}")
+    print(f"hard: corpus {json.dumps(stats)} under {root}: {corpus_s:.1f} s in a process of "
+          f"its own beside phases 6a and 6b")
+    args = hard_args(root)
+    seg = args.steps // args.segments
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with counted_cli(kernels) as pilot_runs, step_marks() as marks:
+        with contextlib.redirect_stdout(buf):
+            pilot = hard_corpus.run_pilot(root, args)
+    pilot_s = time.perf_counter() - t0
+    print_drill_log(buf.getvalue(), "hard")
+    random.seed(HARD_SEARCH_SEED)
+    np.random.seed(HARD_SEARCH_SEED)
+    print(f"hard: the search's mutations seeded: random.seed({HARD_SEARCH_SEED}), "
+          f"np.random.seed({HARD_SEARCH_SEED})")
+    drill_args = hard_search_drill.parse_args(["--root", root, "--device-beam"])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with counted_cli(kernels) as drill_runs, contextlib.redirect_stdout(buf):
+        drill = hard_search_drill.run(drill_args)
+    drill_s = time.perf_counter() - t0
+    print_drill_log(buf.getvalue(), "hard")
+
+    pilot_labels = [label for k in range(1, args.segments + 1)
+                    for label in (f"segment {k}", f"after segment {k}")] + ["final", ""]
+    runs = hard_launches("hard pilot", pilot_runs, pilot_labels, seg, drill_args.generations)
+    runs.update(hard_launches("hard search drill", drill_runs,
+                              ["", "seed weights", "found weights"], seg,
+                              drill_args.generations))
+    print(f"hard: kernel launches {runs}")
+    check(len(marks) == args.steps, f"hard: {len(marks)} train steps, not {args.steps}")
+    for i, s in enumerate(pilot["segments"]):
+        seg_marks = marks[i * seg:(i + 1) * seg]
+        period = step_period_ms(seg_marks) if len(seg_marks) > 2 else None
+        d = s["dev"]
+        print(f"hard: segment {i + 1}: checkpoint at global step {s['global_step']}, "
+              f"optimizer step {s['optimizer_step']}, learning rate {s['learning_rate']!r}; "
+              f"interval losses {s['interval_losses']}; {s['train_seconds']!r} s with set-up, "
+              f"period {period!r} ms/step; greedy dev LER {d['ler']!r} WER {d['wer']!r} "
+              f"(the CLI's {d['cli_ler']!r}, {d['cli_wer']!r})")
+    g, lm = pilot["greedy"], pilot["beam_lm"]
+    print(f"hard: pilot dev ({g['rows']} rows): greedy LER {g['ler']!r} WER {g['wer']!r}; "
+          f"beam + LM (--device-beam, weights {HARD_BEAM_WEIGHTS}) LER {lm['ler']!r} WER "
+          f"{lm['wer']!r} (the CLI's: {g['cli_ler']!r} / {g['cli_wer']!r}, {lm['cli_ler']!r} / "
+          f"{lm['cli_wer']!r}); {g['seconds']!r} s and {lm['seconds']!r} s")
+    seed, best = drill["test_runs"]["seed"], drill["test_runs"]["best"]
+    print(f"hard: search drill: dev score seed {drill['seed']['score']!r} -> best "
+          f"{drill['best']['score']!r} at lm={drill['best']['lm_weight']!r} wc="
+          f"{drill['best']['word_count_weight']!r} vwc="
+          f"{drill['best']['valid_word_count_weight']!r}; best so far "
+          f"{drill['best_score_trajectory']}; test ({seed['rows']} rows) seed LER "
+          f"{seed['ler']!r} WER {seed['wer']!r}, found LER {best['ler']!r} WER "
+          f"{best['wer']!r} (the CLI's: {seed['cli_ler']!r} / {seed['cli_wer']!r}, "
+          f"{best['cli_ler']!r} / {best['cli_wer']!r}); gates {drill['gates']}")
+    step_ms = hard_device_step(root, card)
+    emissions = hard_emissions(root, card)
+    train_s = sum(s["train_seconds"] for s in pilot["segments"])
+    print(f"hard: wall times: corpus {corpus_s:.1f} s (beside phase 6), training "
+          f"{train_s:.1f} s, the pilot {pilot_s:.1f} s, search {drill['search_wall_s']} s, "
+          f"the drill {drill_s:.1f} s; phase 7 {time.perf_counter() - t_phase:.1f} s")
+    check(drill["ok"], f"hard: a search drill gate failed: {drill['gates']}")
+    check(g["ler"] < HARD_GREEDY_LER_GATE,
+          f"hard: the pilot's greedy dev LER {g['ler']!r} is not below {HARD_GREEDY_LER_GATE}")
+    return runs, {"device_step_ms": step_ms, **emissions}
+
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -4391,7 +4996,10 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 3j or 3k, under torchrun
         return rank_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--sanitize-worker"]:  # phase 6a's kernels, under a sanitizer
+        return sanitize_worker(sys.argv[2])
     import concurrent.futures
+    import multiprocessing
 
     from speecht_tpu_torch import native
     from speecht_tpu_torch.ops import beam_device_cuda, conv0, conv0_cuda, ctc_cuda, cuda_build
@@ -4533,8 +5141,23 @@ def main() -> int:
         # 5. the drills: a model trained to held-out convergence, decoded
         # four ways; the training features across a SIGTERM and a relaunch
         drill_runs = drills_path(work, kernels, card)
+        # 6a. the kernels under the sanitizers; 6b. the host C++ under ASan
+        # and UBSan; phase 7's corpus written beside both
+        hard_root = os.path.join(work, "hard")
+        spawn = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+            hard_corpus_future = pool.submit(timed_hard_corpus, hard_root)
+            native_sanitize = start_native_sanitize(work)
+            try:
+                sanitizer_verdicts = sanitize_phase(work, lm_dir, card)
+            finally:
+                finish_native_sanitize(native_sanitize, card)
+            hard_corpus_written = hard_corpus_future.result()
+        # 7. the hard corpus: the pilot, then the search drill on its model
+        hard_runs, hard_facts = hard_path(work, hard_root, hard_corpus_written, kernels,
+                                          card)
 
-    # 6. kernels line, then the result line
+    # 8. kernels line, then the result line
     alpha_entry = kernel_entry(
         "ctc_alpha", "speecht_tpu_torch/csrc/ctc_alpha.cu",
         "speecht_tpu/ops/ctc_pallas.py:145", eval_launches["ctc_alpha"], alpha_main,
@@ -4606,6 +5229,9 @@ def main() -> int:
     for entry in (alpha_entry, beta_entry, conv0_entry, beam_entry):
         entry["launches_by_path"].update(
             {path: n[entry["name"]] for path, n in drill_runs.items()})
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in hard_runs.items()})
+        entry["sanitize"] = sanitizer_verdicts
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["us_per_frame"] = beam_main["us_per_frame"]
     beam_entry["lm_share"] = beam_main["lm_share"]
@@ -4614,6 +5240,8 @@ def main() -> int:
     beam_entry["ms_in_evaluate_batch"] = beam_kernel_ms
     beam_entry["evaluate_device_beam_ms_per_batch"] = beam_lm_ms
     beam_entry["evaluate_host_beam_ms_per_batch"] = lm_ms
+    beam_entry["hard_emissions"] = {key: hard_facts[key]
+                                    for key in ("beam_kernel_ms", "kept_share", "kept_frames")}
     print(f"card: {card}")
     print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry, beam_entry]}))
     print(json.dumps({"ok": True, "device": {

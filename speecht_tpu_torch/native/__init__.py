@@ -5,7 +5,9 @@ Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance:
 :func:`flac_decode`, :func:`resample`, :func:`load_audio`,
 :func:`npz_load_sample`, :func:`lm_is_binary`, :func:`lm_write_binary`,
 :class:`NGramLM`, :func:`ctc_beam_search`, :func:`ctc_beam_search_cont`
-(the continuation search of streaming partials) and :func:`kenlm_dump`.
+(the continuation search of streaming partials) and :func:`kenlm_dump`;
+and :func:`crc32c`, which the JAX package leaves to tensorflow (the TF
+checkpoint reader's check of each tensor, ``compat.py``).
 The sources in this directory are the port's own copies of the JAX
 package's ``speecht_native.cpp`` (FLAC and resampling), ``npz_reader.cpp``
 (without its inflate branch), ``lm.h``, ``beam_search.cpp`` and
@@ -111,6 +113,7 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "stt_free": ([_P], None),
+    "stt_crc32c": ([_P, ctypes.c_size_t], ctypes.c_uint32),
     "stt_flac_decode_file": (
         [
             ctypes.c_char_p,
@@ -437,6 +440,13 @@ def ctc_beam_search_cont(
         len(out),
     )
     return out[:n]
+
+
+def crc32c(buf) -> int:
+    """CRC32C (Castagnoli, unmasked) of a bytes-like buffer; the call
+    releases the GIL."""
+    data = np.frombuffer(buf, np.uint8)
+    return int(load().stt_crc32c(data.ctypes.data, data.size))
 
 
 def _take(lib, ptr, shape) -> np.ndarray:

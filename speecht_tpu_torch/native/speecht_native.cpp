@@ -17,6 +17,8 @@
 //   stt_resample          -- float32 audio from one rate to another;
 //                            output length ceil(n_in * sr_out / sr_in)
 //   stt_free              -- frees the buffers the two functions return
+//   stt_crc32c            -- CRC32C (Castagnoli) of a buffer, unmasked: the
+//                            TF checkpoint reader's check of each tensor
 
 #include <cstdint>
 #include <cstdio>
@@ -35,6 +37,11 @@ namespace speecht_torch {
 // ---------------------------------------------------------------------------
 
 namespace {
+
+// v << s for a signed sample: a negative v shifts as its two's complement
+// bits (what `v << s` gives on every target, without C++17's undefined
+// behaviour for a negative left operand)
+inline int64_t shift_left(int64_t v, int s) { return (int64_t)((uint64_t)v << s); }
 
 struct BitReader {
   const uint8_t* data;
@@ -208,7 +215,7 @@ bool decode_subframe(BitReader& br, int block_size, int bps, int64_t* out) {
   }
 
   if (wasted) {
-    for (int i = 0; i < block_size; ++i) out[i] <<= wasted;
+    for (int i = 0; i < block_size; ++i) out[i] = shift_left(out[i], wasted);
   }
   return !br.error;
 }
@@ -303,6 +310,23 @@ struct Polyphase {
       }
     }
     return true;
+  }
+};
+
+// CRC32C tables for slicing by 8: table[0] is the byte-at-a-time table of
+// the reflected polynomial 0x82F63B78, table[k][i] the CRC of byte i
+// followed by k zero bytes, so eight bytes fold in one step.
+struct Crc32cTables {
+  uint32_t table[8][256];
+  Crc32cTables() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1u)));
+      table[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; ++i)
+      for (int k = 1; k < 8; ++k)
+        table[k][i] = (table[k - 1][i] >> 8) ^ table[0][table[k - 1][i] & 0xFF];
   }
 };
 
@@ -443,7 +467,7 @@ STT_EXPORT int stt_flac_decode_file(const char* path, float** out, int64_t* n_sa
     } else if (ch_code == 10) {  // mid/side
       for (int i = 0; i < block_size; ++i) {
         int64_t mid = ch[0][i], side = ch[1][i];
-        mid = (mid << 1) | (side & 1);
+        mid = shift_left(mid, 1) | (side & 1);
         ch[0][i] = (mid + side) >> 1;
         ch[1][i] = (mid - side) >> 1;
       }
@@ -548,6 +572,25 @@ STT_EXPORT int stt_resample(const float* in, int64_t n_in, double sr_in, double 
   *out = r;
   *n_out = count;
   return 0;
+}
+
+// CRC32C of n bytes (initial value and final xor 0xFFFFFFFF): "123456789"
+// gives 0xE3069283.
+STT_EXPORT uint32_t stt_crc32c(const uint8_t* p, size_t n) {
+  static const Crc32cTables tables;
+  const auto& t = tables.table;
+  uint32_t crc = 0xFFFFFFFFu;
+  for (; n >= 8; p += 8, n -= 8) {
+    uint32_t lo = crc ^ ((uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+                         (uint32_t)p[3] << 24);
+    uint32_t hi = (uint32_t)p[4] | (uint32_t)p[5] << 8 | (uint32_t)p[6] << 16 |
+                  (uint32_t)p[7] << 24;
+    crc = t[7][lo & 0xFF] ^ t[6][(lo >> 8) & 0xFF] ^ t[5][(lo >> 16) & 0xFF] ^
+          t[4][lo >> 24] ^ t[3][hi & 0xFF] ^ t[2][(hi >> 8) & 0xFF] ^
+          t[1][(hi >> 16) & 0xFF] ^ t[0][hi >> 24];
+  }
+  for (; n; ++p, --n) crc = t[0][(crc ^ *p) & 0xFF] ^ (crc >> 8);
+  return crc ^ 0xFFFFFFFFu;
 }
 
 }  // extern "C"

@@ -10,12 +10,19 @@
 - ``train_features_check``: ``tools/train_features_check.py``'s gate
   (``--spec-augment`` with narrow masks, ``--grad-accum 2``, greedy LER
   < 0.05) on the same synthetic corpus, with a SIGTERM crash-save and a
-  relaunch in the middle.
+  relaunch in the middle;
+- ``native_sanitize_check``: the port's host C++ built with ASan and
+  UBSan, every ``stt_`` entry point driven and three parsers fuzzed (the
+  CPU alone);
+- ``hard_corpus``: the hard synthetic corpus (speaker variation, noise,
+  confusable letters, a minimal-pair lexicon; the JAX tool's files for the
+  same seed, plus a test split) and its ``pilot``;
+- ``hard_search_drill``: ``search`` on the pilot's model, gated on dev and
+  on the held-out split.
 
 Each runs on the card unless ``--device cpu`` is given. ``tools/``'s
 ``overfit_check``, ``train_features_check`` on its own corpus,
 ``device_beam_check`` and ``record_check`` train on one bundled
 LibriSpeech utterance that the repository does not hold, so they wait for
-it; ``librispeech_scale_soak`` and ``hard_search_drill`` take hours of
-card time.
+it; ``librispeech_scale_soak`` takes hours of card time.
 """

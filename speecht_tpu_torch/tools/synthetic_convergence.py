@@ -117,7 +117,7 @@ def held_out_rates(output: str) -> tuple[float, float]:
 
 def timed_eval(argv: list[str]) -> dict:
     """One ``evaluate`` run: its held-out LER and WER (``held_out_rates``;
-    the CLI's own as ``cli_ler``, ``cli_wer``) and wall seconds."""
+    the CLI's own as ``cli_ler``, ``cli_wer``), wall seconds and output."""
     t0 = time.perf_counter()
     stats, out = run_cli(argv)
     seconds = time.perf_counter() - t0
@@ -133,6 +133,7 @@ def timed_eval(argv: list[str]) -> dict:
         "cli_wer": stats.global_word_error_rate,
         "rows": stats.decodings_counter,
         "seconds": seconds,
+        "output": out,
     }
 
 

@@ -46,9 +46,13 @@ def crc32c(data: bytes) -> int:
     return crc ^ 0xFFFFFFFF
 
 
-def _masked_crc(data: bytes) -> int:
-    crc = crc32c(data)
+def mask_crc(crc: int) -> int:
+    """TF's ``crc32c::Mask``: records and checkpoints store this."""
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _masked_crc(data: bytes) -> int:
+    return mask_crc(crc32c(data))
 
 
 def _varint(n: int) -> bytes:

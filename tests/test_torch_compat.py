@@ -8,8 +8,9 @@ partitioned (sliced) one. The port reads them with its own V2 tensor-bundle
 reader (no tensorflow): its import equals JAX's ``import_tf_checkpoint``
 and ``import_reference_weights`` bit for bit, its reader equals
 ``tf.train.load_checkpoint`` on every variable it reads and refuses the
-others by name, a corrupted block CRC, a missing data shard and a V1
-single-file checkpoint raise, and ``evaluate --reference-weights <tf dir>``
+others by name, a corrupted block CRC, a corrupted tensor (its own
+CRC32C, where JAX's tensorflow raises its checksum error), a missing data
+shard and a V1 single-file checkpoint raise, and ``evaluate --reference-weights <tf dir>``
 decodes as the same weights exported as ``.npy`` do. The ``.npy`` export's
 import and its errors equal JAX's too.
 """
@@ -150,6 +151,28 @@ def test_corrupt_index_block_fails_its_crc(tf_ckpt, tmp_path):
     data[20] ^= 0x01  # a key byte of the first block
     index.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="CRC32C"):
+        compat.import_tf_checkpoint(_template(), str(out))
+
+
+def test_corrupt_data_shard_fails_its_tensor_crc(tf_ckpt, tmp_path):
+    """A byte flipped in the middle of the data shard: TF's reader (JAX's
+    import) raises its checksum error (an ``OpError``; ``DataLossError``
+    in some TF versions), the port's ValueError naming the variable that
+    holds the byte. The stored CRC is masked as TF's
+    ``crc32c::Mask``: the good checkpoint's tensors all pass."""
+    tf = pytest.importorskip("tensorflow")
+    out = _copy(tf_ckpt, tmp_path)
+    shard = out / "speechT.ckpt-123.data-00000-of-00001"
+    data = bytearray(shard.read_bytes())
+    middle = len(data) // 2
+    entries = compat.load_checkpoint(str(out)).entries.values()
+    (hit,) = [e.name for e in entries if e.offset <= middle < e.offset + e.size]
+    data[middle] ^= 0x10
+    shard.write_bytes(bytes(data))
+    with pytest.raises(tf.errors.OpError, match="Checksum does not match"):
+        jcompat.import_tf_checkpoint(_jax_params(), str(out))
+    with pytest.raises(ValueError, match=f"variable {hit} in checkpoint data shard "
+                       f".*{shard.name} fails its CRC32C check"):
         compat.import_tf_checkpoint(_template(), str(out))
 
 

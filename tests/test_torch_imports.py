@@ -240,3 +240,23 @@ def test_every_module_of_the_drills_slice_is_checked():
         "speecht_tpu_torch.tools.train_features_check",
     ):
         assert m in mods
+
+
+def test_every_module_of_the_sanitizer_and_hard_corpus_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.tools.native_sanitize_check",
+        "speecht_tpu_torch.tools.hard_corpus",
+        "speecht_tpu_torch.tools.hard_search_drill",
+        "speecht_tpu_torch.native",
+        "speecht_tpu_torch.compat",
+    ):
+        assert m in mods
+
+
+def test_the_package_does_not_import_chip_smoke():
+    """``chip_smoke.py`` drives the package; the package (its drills
+    among it) never imports the script."""
+    for path in _sources():
+        if path.startswith(PACKAGE):
+            assert "chip_smoke" not in set(_imported_roots(path)), path
