@@ -257,7 +257,8 @@ drives the port's main path through its normal entry point, and fails
    float32 at T=50 and T=1000, ``beam_device`` at B=4 with the phase-2d
    LM (and its n-best), each against its plain version. The worker runs
    under ``compute-sanitizer`` (found beside ``nvcc``; missing, the run
-   fails) ``--tool memcheck``, ``synccheck`` and ``racecheck`` with
+   fails) ``--tool memcheck``, ``synccheck`` and ``racecheck`` (side by
+   side, a worker each) with
    ``PYTORCH_NO_CUDA_MEMORY_CACHING=1``: memcheck's and synccheck's errors
    fail the run, racecheck's report is printed, and a tool that refuses
    the card is reported as not run. Then the worker once more with every
@@ -293,7 +294,28 @@ drives the port's main path through its normal entry point, and fails
    its emissions and the beam kernel's ms a batch of 64 there; the wall
    times. Gates: the drill's two (dev and test improved) and the pilot's
    greedy dev LER below 0.5.
-8. One JSON line listing every kernel, then the result line
+8. The device beam on a 10^7-n-gram LM
+   (``speecht_tpu_torch/tools/large_lm_probe.py``'s: 100,000 words,
+   orders 1-3, converted to a KenLM PROBING binary), synthesised and its
+   tables built cold into the run's ``SPEECHT_DEVICE_LM_CACHE`` in a
+   process of its own beside phases 6a, 6b and 9. Then, after phase 7:
+   the warm load (the npz and the upload), its device-memory bytes and
+   both two-choice flags (both must be on); the probe's 30-context scorer check against the
+   host scorer; the kernel against its plain version on the probe's B=64
+   x T=128 emissions (ids, n-best 8 scores bit-equal, two calls
+   bit-equal), its ms with this LM, the tiny LM and no LM, the bound with
+   this LM's table bytes and the split of a frame; ``evaluate
+   --language-model --device-beam`` on the phase-3 corpus (4 batches) and
+   with ``--device-lm-hbm-gb 0.25``, which must print the budget message
+   and decode on the host beam with no ``beam_device`` launch.
+9. ``python -m speecht_tpu_torch.tools.multiprocess_drill`` at full
+   width, in a process group of its own beside phases 6a and 6b: 12 or
+   more launches of 1, 2 and 4 ranks sharing the card (gloo,
+   ``SPEECHT_SHARE_CARD=1``), every ``PASS`` line and exit code 0
+   required; each launch's wall time, backend, its ranks'
+   ``ctc_alpha``/``ctc_beta`` launches (counted in each rank, checked
+   against its steps and batches) and their peak memory.
+10. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
@@ -1069,6 +1091,14 @@ class LogAddExpCount(torch.overrides.TorchFunctionMode):
         return int((torch.stack(self.rows[:-1]) * live).sum() + self.rows[-1].sum())
 
 
+def lm_tables(lm):
+    """A device LM's tables in a few words: both two-choice flags, the
+    arena's and the words table's buckets and the bytes."""
+    return (f"arena two-choice {lm.arena_two_choice}, words two-choice "
+            f"{lm.words_two_choice}, {lm.tables['arena_k'].shape[0]} arena and "
+            f"{lm.tables['words_k'].shape[0]} words buckets, {lm.hbm_bytes()} bytes")
+
+
 def beam_bound_ms(lengths, W, K, H, n_best, T, table_bytes, logaddexps):
     """Least time for this data: the emissions read once, the outputs
     written once (the backpointers can stay on chip), the LM rows probed
@@ -1145,6 +1175,7 @@ def check_beam(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
     bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
     max_abs = 0.0
     score_note = ""
+    scores_bit_equal = None
     ok = same_ids and bit_equal
     if n_best > 1:
         gs, ws = got[2], want[2]
@@ -1155,16 +1186,19 @@ def check_beam(name, lm, logp, lengths, device, W=BEAM_WIDTH, top_k=BEAM_TOP_K,
         ok = ok and rel <= BEAM_SCORE_RTOL
         score_note = (f"; n-best scores max rel diff {rel!r} (tolerance {BEAM_SCORE_RTOL}), "
                       f"{same_bits}/{gs.numel()} bit-equal")
+        scores_bit_equal = same_bits == gs.numel()
     K = fn.spec.top_k(logp.shape[2])
     H = fn.spec.H
     shape = (f"B={len(lengths)} T={logp.shape[1]} frames {int(lengths.min())}-"
              f"{int(lengths.max())} W={W} K={K} n_best={n_best} "
-             + ("no LM" if lm is None else f"LM order {lm.order} ({lm.key_scheme} keys)"))
+             + ("no LM" if lm is None else f"LM order {lm.order} ({lm.key_scheme} keys, "
+                                           f"{lm_tables(lm)})"))
     print(f"beam_device {name} [{shape}]: rows with equal ids {rows_equal}/{len(lengths)}, "
           f"lengths equal {bool(torch.equal(got[1], want[1]))}{score_note}; two calls "
           f"bit-equal {bit_equal}: " + ("ok" if ok else "DISAGREES"))
     check(ok, f"beam_device {name} disagrees with the plain version")
-    result = {"shape": shape, "max_abs_err": max_abs, "ok": ok}
+    result = {"shape": shape, "max_abs_err": max_abs, "ok": ok,
+              "scores_bit_equal": scores_bit_equal}
     if not time_it:
         return result
     ms = time_ms(lambda: fn(x, n, *weights), iters=5)
@@ -2376,6 +2410,7 @@ def device_beam_paths(work, data_dir, lm_weights, lm_dir, kernels, card, host_lm
         host_lengths = lengths.cpu().numpy()
         t_bucket = min(logp.shape[1], max(32, -(-int(host_lengths.max()) // 32) * 32))
         emissions = logp[:, :t_bucket].contiguous()
+        print(f"device beam: the CLI's decoder's LM: {lm_tables(decoder._beam_fn.spec.lm)}")
         cfg = decoder.lm_config
         kernel_ms = time_ms(lambda: decoder._beam_fn(
             emissions, lengths, cfg.lm_weight, cfg.word_count_weight,
@@ -4669,6 +4704,8 @@ def sanitize_phase(work, lm_dir, card):
     hazards are printed); a sanitizer that refuses the card is reported as
     such, and the guard run, which needs no tool, is the check that runs.
     Returns {tool: verdict}."""
+    import concurrent.futures
+
     t_phase = time.perf_counter()
     spec = {"lm_dir": lm_dir, "device_lm_cache": os.environ["SPEECHT_DEVICE_LM_CACHE"]}
     binary = sanitizer_binary()
@@ -4676,10 +4713,17 @@ def sanitize_phase(work, lm_dir, card):
                              timeout=60).stdout.strip().splitlines()
     print(f"sanitize: {binary} ({version[-1] if version else 'no version'})")
     verdicts = {}
-    for tool in SANITIZER_TOOLS:
+
+    def under(tool):
         t0 = time.perf_counter()
         flags = ["--tool", tool] + ([] if tool == "racecheck" else ["--error-exitcode", "1"])
-        code, out = run_sanitize_worker(work, spec, tool, (binary, *flags))
+        return (*run_sanitize_worker(work, spec, tool, (binary, *flags)),
+                time.perf_counter() - t0)
+
+    # the three tools' workers side by side (each a process of its own)
+    with concurrent.futures.ThreadPoolExecutor(len(SANITIZER_TOOLS)) as pool:
+        runs = list(pool.map(under, SANITIZER_TOOLS))
+    for tool, (code, out, seconds) in zip(SANITIZER_TOOLS, runs):
         report = [ln for ln in out.splitlines() if ln.startswith("========")]
         for line in [ln for ln in report if "Host Frame" not in ln][:30]:
             print(f"sanitize {tool}: {line}")
@@ -4694,7 +4738,7 @@ def sanitize_phase(work, lm_dir, card):
             check(code == 0 and passed, f"sanitize: {tool} reported errors or the worker "
                   f"failed (exit {code}); see the lines above")
             verdicts[tool] = "no error"
-        print(f"sanitize {tool}: {verdicts[tool]} ({time.perf_counter() - t0:.1f} s)")
+        print(f"sanitize {tool}: {verdicts[tool]} ({seconds:.1f} s, the three side by side)")
     t0 = time.perf_counter()
     code, out = run_sanitize_worker(
         work, {**spec, "guard_lib": build_guard(work)}, "guard")
@@ -4971,6 +5015,217 @@ def hard_path(work, root, corpus, kernels, card):
     return runs, {"device_step_ms": step_ms, **emissions}
 
 
+# -- phase 8: the device beam on a 10^7-n-gram LM ------------------------------
+
+# large_lm_probe.py's defaults; a budget below the tables' ~0.5 GiB
+LARGE_LM_NGRAMS, LARGE_LM_VOCAB = 10_000_000, 100_000
+LARGE_LM_BUDGET_GB = "0.25"
+
+
+def timed_large_lm(root, cache_dir):
+    """``large_lm_probe.synthesize`` at the probe's defaults under
+    ``root`` (a PROBING binary alone in it), then the tables built cold
+    into ``cache_dir`` (the npz every later load reads), in a process of
+    its own beside phases 6a, 6b and 9. Returns (the binary, the facts, the wall
+    seconds, the log)."""
+    from speecht_tpu_torch.ops import beam_device
+    from speecht_tpu_torch.tools import large_lm_probe
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        binary, facts = large_lm_probe.synthesize(root, LARGE_LM_NGRAMS, LARGE_LM_VOCAB)
+        t1 = time.perf_counter()
+        meta, tables = beam_device._cached_np_tables(binary, None, cache_dir)
+        facts["cold_build_s"] = time.perf_counter() - t1
+    facts.update({k: bool(meta[k]) for k in ("arena_two_choice", "words_two_choice")})
+    facts["table_bytes"] = sum(int(a.size) * 4 for a in tables.values())
+    return binary, facts, time.perf_counter() - t0, buf.getvalue()
+
+
+def large_lm_path(work, built, data_dir, lm_weights, kernels, card,
+                  device=torch.device("cuda")):
+    """Phase 8: the 10^7-n-gram LM that ``timed_large_lm`` built: the warm
+    load (gated on both two-choice flags), the probe's scorer check, the
+    beam kernel against its plain version on the probe's emissions with
+    this LM (and n-best 8), the tiny LM and no LM, each timed, the split
+    of a frame, then ``evaluate --language-model --device-beam`` on it
+    through the CLI and with ``--device-lm-hbm-gb 0.25`` (the host beam).
+    Returns ({path: launch counts}, the large-LM facts)."""
+    from speecht_tpu_torch.ops import beam_device
+    from speecht_tpu_torch.tools import large_lm_probe
+
+    t_phase = time.perf_counter()
+    binary, facts, build_s, log = built
+    for line in log.splitlines():
+        print(f"large LM: {line}")
+    print(f"large LM: {binary}: {os.path.getsize(binary)} bytes; tables built cold in "
+          f"{facts['cold_build_s']!r} s ({facts['table_bytes']} bytes, arena two-choice "
+          f"{facts['arena_two_choice']}, words two-choice {facts['words_two_choice']}); "
+          f"{build_s:.1f} s in a process of its own beside phases 6a, 6b and 9")
+    t0 = time.perf_counter()
+    lm = beam_device.DeviceLM.cached(binary, device=device)
+    large_lm_probe.sync(lm)
+    warm_s = time.perf_counter() - t0
+    print(f"large LM: warm load (the npz and the upload, synchronised) {warm_s!r} s: "
+          f"{lm_tables(lm)} ({lm.hbm_bytes() / 1e6:.1f} MB on the card); on {card}")
+    check(lm.arena_two_choice and lm.words_two_choice,
+          "large LM: two-choice placement is off at 10^7 n-grams")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        checked, bad = large_lm_probe.spot_check(lm, binary)
+    print(f"large LM: {buf.getvalue().strip()}")
+    check(checked == 30 and bad == 0, f"large LM: the scorer disagrees on {bad} of {checked}")
+
+    lm_dir = os.path.dirname(binary)
+    tiny_dir = os.path.join(work, "tiny_lm")
+    os.makedirs(tiny_dir)
+    with open(os.path.join(tiny_dir, "model.arpa"), "w") as f:
+        f.write(large_lm_probe.TINY_ARPA)
+    tiny_lm = beam_device.DeviceLM(os.path.join(tiny_dir, "model.arpa"), device=device)
+    logp, lengths = large_lm_probe.probe_emissions()
+    weights = large_lm_probe.BEAM_WEIGHTS
+    main = check_beam("10^7-n-gram LM", lm, logp, lengths, device, weights=weights,
+                      lm_dir=lm_dir, time_it=True)
+    nbest = check_beam("10^7-n-gram LM, n_best=8", lm, logp, lengths, device, n_best=8,
+                       weights=weights)
+    check(nbest["scores_bit_equal"], "large LM: the n-best scores are not bit-equal")
+    tiny = check_beam("tiny LM", tiny_lm, logp, lengths, device, weights=weights,
+                      lm_dir=tiny_dir, time_it=True)
+    no_lm = check_beam("no LM, the probe's emissions", None, logp, lengths, device,
+                       weights=weights, time_it=True)
+    split = beam_split("10^7-n-gram LM", lm, logp, lengths, device, weights=weights)
+    split_tiny = beam_split("tiny LM", tiny_lm, logp, lengths, device, weights=weights)
+    T = logp.shape[1]
+    lm_share = (main["ms"] - no_lm["ms"]) / main["ms"]
+    print(f"large LM: the beam kernel at B={len(lengths)} T={T} W={BEAM_WIDTH} K={BEAM_TOP_K}: "
+          f"{main['ms']!r} ms with the 10^7-n-gram LM ({main['ms'] * 1e3 / T:.3f} µs a "
+          f"frame, {len(lengths) / main['ms'] * 1e3:.1f} utt/s), tiny LM {tiny['ms']!r} "
+          f"({tiny['ms'] * 1e3 / T:.3f}), no LM {no_lm['ms']!r} ({no_lm['ms'] * 1e3 / T:.3f}); "
+          f"the LM's share {lm_share:.3f}, the large tables' cost over the tiny LM's "
+          f"{main['ms'] - tiny['ms']!r} ms; bound {main['bound_ms']!r} ms "
+          f"({main['bound_by']}); plain {main['plain_ms']!r} ms; on {card}")
+
+    runs = {}
+    name = "evaluate --language-model --device-beam (10^7 n-grams)"
+    runs[name], cli_ms, _out = lm_eval_path(work, data_dir, lm_weights, lm_dir, kernels,
+                                            card, "--device-beam", beam_launches=LM_STEPS)
+    fallback, _ms, out = lm_eval_path(
+        work, data_dir, lm_weights, lm_dir, kernels, card, "--device-beam",
+        "--device-lm-hbm-gb", LARGE_LM_BUDGET_GB, steps=1, beam_launches=0)
+    message = [ln for ln in out.splitlines() if "falling back to the host beam" in ln]
+    check(bool(message) and "--device-lm-hbm-gb" in message[0],
+          f"large LM: --device-lm-hbm-gb {LARGE_LM_BUDGET_GB} printed no budget message")
+    print(f"large LM: --device-lm-hbm-gb {LARGE_LM_BUDGET_GB}: {message[0]}")
+    runs[f"evaluate --device-beam --device-lm-hbm-gb {LARGE_LM_BUDGET_GB} (10^7 n-grams, "
+         "the host beam)"] = fallback
+    print(f"large LM: phase 8 wall time {time.perf_counter() - t_phase:.1f} s (the LM's "
+          f"build {build_s:.1f} s beside phases 6a, 6b and 9)")
+    return runs, {
+        "shape": main["shape"], "ms": main["ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "plain_ms": main["plain_ms"],
+        "host_beam_ms": main["host_beam_ms"], "no_lm_ms": no_lm["ms"],
+        "tiny_lm_ms": tiny["ms"], "lm_share": lm_share,
+        "us_per_frame": main["ms"] * 1e3 / T, "hbm_mb": lm.hbm_bytes() / 1e6,
+        "arena_buckets": int(lm.tables["arena_k"].shape[0]),
+        "arena_two_choice": lm.arena_two_choice, "words_two_choice": lm.words_two_choice,
+        "split_us_per_frame": {"10^7-n-gram LM": split, "tiny LM": split_tiny},
+        "warm_load_s": warm_s, "cold_build_s": facts["cold_build_s"],
+        "evaluate_device_beam_ms_per_batch": cli_ms,
+    }
+
+
+# -- phase 9: the multi-process drill ---------------------------------------------
+
+MP_DRILL_TIMEOUT_S = 900
+
+
+def drill_launch_wants(summary):
+    """{kernel: launches} each rank of a drill launch must report (None
+    for a rank that may have reported nothing or stopped early: the
+    SIGTERM run's)."""
+    argv = summary["argv"]
+    if summary["name"].startswith("killmp") and not summary["name"].endswith("_resume"):
+        return [None] * summary["ranks"]
+    if argv[0] == "train":
+        steps = int(argv[argv.index("--max-steps") + 1])
+        want = {"ctc_alpha": steps, "ctc_beta": steps, "conv0": 0, "beam_device": 0}
+    else:
+        want = {"ctc_alpha": 1, "ctc_beta": 0, "conv0": 0, "beam_device": 0}
+    return [want] * summary["ranks"]
+
+
+def start_multiprocess_drill(work):
+    """Phase 9, started: ``python -m speecht_tpu_torch.tools.multiprocess_drill``
+    at full width in a process group of its own (beside phases 6a and 6b),
+    its ranks sharing the card. Returns (the process, its log's path, its
+    start time)."""
+    log_path = os.path.join(work, "mp_drill.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "speecht_tpu_torch.tools.multiprocess_drill",
+             "--root", os.path.join(work, "mp_drill")],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    return proc, log_path, time.perf_counter()
+
+
+def finish_multiprocess_drill(started, kernels, card):
+    """Phase 9, joined. Gates: exit code 0 and every PASS line; each
+    launch's ranks' kernel launches (every complete train launch
+    ``ctc_alpha`` and ``ctc_beta`` once a micro-batch on every rank, an
+    evaluate ``ctc_alpha`` once, conv0 and ``beam_device`` never; the
+    SIGTERM run's signalled rank stopped between its first step and its
+    last). Returns ({path: launch counts summed over the ranks}, the
+    launches' summaries)."""
+    from speecht_tpu_torch.tools import multiprocess_drill
+
+    proc, log_path, t_phase = started
+    try:
+        code = proc.wait(timeout=max(MP_DRILL_TIMEOUT_S - (time.perf_counter() - t_phase), 1))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        code = None
+    with open(log_path) as f:
+        out = f.read()
+    summaries = []
+    for line in out.splitlines():
+        if line.startswith('{"multiprocess_drill"'):
+            summaries = json.loads(line)["multiprocess_drill"]
+        else:
+            print(f"mp drill: {line}")
+    check(code == 0, f"mp drill: exit code {code} (time limit {MP_DRILL_TIMEOUT_S} s)")
+    for line in multiprocess_drill.PASS_LINES:
+        check(line in out, f"mp drill: no '{line}' line")
+    runs = {}
+    for s in summaries:
+        wants = drill_launch_wants(s)
+        ranks = s["ranks"]
+        if ranks > 1:
+            check(s["backend"].startswith("gloo, device cuda:0;")
+                  and f"{ranks} ranks share cuda:0" in s["backend"],
+                  f"mp drill: {s['name']}: backend {s['backend']}")
+        for r, (got, want) in enumerate(zip(s["launches"], wants)):
+            if want is not None:
+                check(got == want, f"mp drill: {s['name']} rank {r} launched {got}, not {want}")
+        if s["name"].startswith("killmp") and not s["name"].endswith("_resume"):
+            signalled = s["launches"][1]
+            check(signalled is not None and 1 <= signalled["ctc_alpha"] == signalled["ctc_beta"]
+                  < multiprocess_drill.KILL_STEPS,
+                  f"mp drill: the signalled rank of {s['name']} launched {signalled}")
+        reported = [n for n in s["launches"] if n is not None]
+        runs[f"multiprocess drill: {s['argv'][0]} {s['name']} ({ranks} rank"
+             + ("s)" if ranks > 1 else ")")] = {
+            k.name: sum(n[k.name] for n in reported) for k in kernels}
+    check(len(summaries) >= 12, f"mp drill: {len(summaries)} launches reported")
+    print(f"mp drill: phase 9 wall time {time.perf_counter() - t_phase:.1f} s (beside "
+          f"phases 6a and 6b), {len(summaries)} launches; every launch's kernel counts "
+          f"as expected; on {card}")
+    return runs, summaries
+
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -5012,6 +5267,15 @@ def main() -> int:
     os.environ.pop(conv0.ENV_VAR, None)
 
     # 1. environment
+    t_start = time.perf_counter()
+    marks = [t_start]
+
+    def phase_time(name):
+        now = time.perf_counter()
+        print(f"wall time: phases {name} {now - marks[-1]:.1f} s; the script so far "
+              f"{now - t_start:.1f} s")
+        marks.append(now)
+
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5056,6 +5320,7 @@ def main() -> int:
     print("ctc_alpha dynamic shared memory a CTA (with the history ring): " + ", ".join(
         f"L={L} {alpha_lib.ctc_alpha_smem_bytes(L, 29)} bytes"
         for L in (256, 1088, FIRST_KERNEL_WIDEST_LABELS, most)))
+    phase_time("1")
 
     # 2. the alpha kernel against its plain version
     train_inputs = ctc_inputs(
@@ -5093,6 +5358,7 @@ def main() -> int:
             check_conv0(name, B, T, I, O, dtype, device, time_it=False)
     check_conv0_bit_equal(device)
     check_conv0_grads(device)
+    phase_time("2-2c")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # the device beam's LM tables are cached here, not in $HOME
@@ -5101,6 +5367,7 @@ def main() -> int:
         beam_main, lm_dir, n_grams = beam_phase(work, device)
         print("kernel launches in the comparisons: "
               + str({k.name: k.launches for k in kernels}))
+        phase_time("2d")
 
         # 3. evaluate; 3b. train; 3c. the conv0 path; 3d, 3e. the LM paths;
         # 3f. the audio front end; 3g. the device beam; 3h. export; 3i.
@@ -5113,6 +5380,7 @@ def main() -> int:
             work, data_dir, weights, kernels, card, steady_ms, train_ms
         )
         conv0_device_steps(data_dir, weights, card)
+        phase_time("3-3c")
         lm_weights, _kept = lm_weights_for(work, data_dir, weights)
         lm_launches, lm_ms, _out = lm_eval_path(work, data_dir, lm_weights, lm_dir,
                                                 kernels, card)
@@ -5121,43 +5389,68 @@ def main() -> int:
                                                  kernels, card)
         beam_runs, beam_lm_ms, beam_kernel_ms = device_beam_paths(
             work, data_dir, lm_weights, lm_dir, kernels, card, lm_ms, search_ms)
+        phase_time("3d, 3e, 3g")
         parity(data_dir, weights)
         parity_train(data_dir, weights)
         parity(data_dir, weights, conv0_path=True)
+        phase_time("4-4c")
         (audio_greedy, audio_lm, audio_beam, audio_cached, host_dir,
          device_dir) = audio_path(work, weights, lm_weights, lm_dir, kernels, card)
         beam_runs["evaluate --from-audio --language-model --device-beam"] = audio_beam
+        phase_time("3f")
         # 3h. export and the loaded program; 3i. record
         export_launches = export_path(work, data_dir, weights, host_dir, kernels, card)
         record_runs = record_path(work, weights, lm_dir, host_dir, device_dir, kernels, card)
         record_runs["export (loaded program)"] = export_launches
+        phase_time("3h, 3i")
         # 3j. parallel/: train and evaluate on two ranks sharing the card
         parallel_runs = parallel_path(work, data_dir, weights, kernels, card)
         # 3k. evaluate --language-model and --from-audio on two ranks
         decode_runs = parallel_decode_path(work, data_dir, weights, lm_dir, host_dir,
                                            kernels, card)
+        phase_time("3j, 3k")
         parity_beam(data_dir, lm_weights, lm_dir)
         parity_audio(host_dir, device_dir, weights)
+        phase_time("4d-4f")
         # 5. the drills: a model trained to held-out convergence, decoded
         # four ways; the training features across a SIGTERM and a relaunch
         drill_runs = drills_path(work, kernels, card)
+        phase_time("5")
         # 6a. the kernels under the sanitizers; 6b. the host C++ under ASan
-        # and UBSan; phase 7's corpus written beside both
+        # and UBSan; 9. the multi-process drill; phase 7's corpus and phase
+        # 8's LM written beside them
         hard_root = os.path.join(work, "hard")
         spawn = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        torch.cuda.empty_cache()
+        with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
             hard_corpus_future = pool.submit(timed_hard_corpus, hard_root)
+            large_lm_future = pool.submit(timed_large_lm, os.path.join(work, "large_lm"),
+                                          os.environ["SPEECHT_DEVICE_LM_CACHE"])
             native_sanitize = start_native_sanitize(work)
+            mp_drill = start_multiprocess_drill(work)
             try:
                 sanitizer_verdicts = sanitize_phase(work, lm_dir, card)
-            finally:
                 finish_native_sanitize(native_sanitize, card)
+                mp_drill_runs, _summaries = finish_multiprocess_drill(mp_drill, kernels, card)
+            finally:
+                # a phase that failed leaves no process of 6b or 9 running
+                if native_sanitize[0].poll() is None:
+                    native_sanitize[0].kill()
+                if mp_drill[0].poll() is None:
+                    os.killpg(mp_drill[0].pid, 9)
             hard_corpus_written = hard_corpus_future.result()
+            large_lm_built = large_lm_future.result()
+        phase_time("6a, 6b and 9 (phase 7's corpus and phase 8's LM beside them)")
         # 7. the hard corpus: the pilot, then the search drill on its model
         hard_runs, hard_facts = hard_path(work, hard_root, hard_corpus_written, kernels,
                                           card)
+        phase_time("7")
+        # 8. the device beam on the 10^7-n-gram LM
+        large_lm_runs, large_lm = large_lm_path(work, large_lm_built, data_dir, lm_weights,
+                                                kernels, card)
+        phase_time("8")
 
-    # 8. kernels line, then the result line
+    # 10. kernels line, then the result line
     alpha_entry = kernel_entry(
         "ctc_alpha", "speecht_tpu_torch/csrc/ctc_alpha.cu",
         "speecht_tpu/ops/ctc_pallas.py:145", eval_launches["ctc_alpha"], alpha_main,
@@ -5232,6 +5525,13 @@ def main() -> int:
         entry["launches_by_path"].update(
             {path: n[entry["name"]] for path, n in hard_runs.items()})
         entry["sanitize"] = sanitizer_verdicts
+    for entry in (alpha_entry, beta_entry):
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in mp_drill_runs.items()})
+    for entry in (alpha_entry, beam_entry):
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in large_lm_runs.items()})
+    beam_entry["large_lm"] = large_lm
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["us_per_frame"] = beam_main["us_per_frame"]
     beam_entry["lm_share"] = beam_main["lm_share"]
@@ -5242,6 +5542,7 @@ def main() -> int:
     beam_entry["evaluate_host_beam_ms_per_batch"] = lm_ms
     beam_entry["hard_emissions"] = {key: hard_facts[key]
                                     for key in ("beam_kernel_ms", "kept_share", "kept_frames")}
+    print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": [alpha_entry, beta_entry, conv0_entry, beam_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -314,7 +314,10 @@ __device__ __forceinline__ int slot_of(const int4& x, const int4& y, uint32_t k1
 }
 
 // Where the key is: its value's index (bucket·4 + slot), the primary
-// bucket first; -1 if it is absent.
+// bucket first; -1 if it is absent. The index is an int: sound while
+// nb·4 < 2^31, i.e. up to 2^28 buckets (the host build refuses more,
+// ops/beam_device.py::_build_bucket_table); a 10^7-n-gram arena has 2^23.
+// At 2^29 buckets the index would wrap negative.
 __device__ __forceinline__ int find_key(const KeyRows& r, int two_choice, uint32_t k1,
                                         uint32_t k2) {
   int s = slot_of(r.a0, r.a1, k1, k2);

@@ -325,6 +325,12 @@ class PrefetchLoader:
                     ready = torch.cuda.Event()
                     ready.record(stream)
                 out_queue.put((host, dev, ready))
+                # an abandoned iteration (the put returned to the drain):
+                # build no further batch. On several ranks a build is a
+                # collective (sync_bucket_dims) that a peer stopped at
+                # another step never joins, so it would never return
+                if stop.is_set():
+                    return
         except BaseException as e:  # re-raised in the consumer
             errors.append(e)
         finally:

@@ -18,7 +18,14 @@
   confusable letters, a minimal-pair lexicon; the JAX tool's files for the
   same seed, plus a test split) and its ``pilot``;
 - ``hard_search_drill``: ``search`` on the pilot's model, gated on dev and
-  on the held-out split.
+  on the held-out split;
+- ``multiprocess_drill``: ``train`` and ``evaluate`` on 2 and 4 ranks (a
+  2x2 grid), each a process of its own, against one process: data
+  parallel, a resume from a 2-rank checkpoint, mixed buckets,
+  ``--grad-accum``, a worker's SIGTERM and the job's relaunch;
+- ``large_lm_probe``: a 10^7-n-gram LM (the JAX tool's ARPA, converted to
+  a PROBING binary) through the device LM tables, the scorer and the beam,
+  timed against a tiny LM.
 
 Each runs on the card unless ``--device cpu`` is given. ``tools/``'s
 ``overfit_check``, ``train_features_check`` on its own corpus,

@@ -11,7 +11,8 @@ so the ids and lengths must be equal on every row and the n-best scores
 equal to 1e-6 relative; two kernel calls must be bit-equal. Cases:
 ``chip_smoke.py`` phase 2d's at a smaller batch (the order-3 LM of
 ``chip_smoke.write_lm``, no LM, n-best, W=1024, ragged rows, order-1 and
-order-6 LMs, KenLM-keyed tables), tie-heavy emissions with and without
+order-6 LMs, KenLM-keyed tables), tables that need two-choice placement
+(a PROBING binary), tie-heavy emissions with and without
 the LM, W=1024 on full-length rows, the shape edges (W=1, W=2, W=1024 at
 K=8, K=29 at W=128, T=1, every row of length 0), a launch the kernel
 cannot take raising before it is made (a width or an LM table of a shape
@@ -120,6 +121,24 @@ def test_widest_beam_full_rows(cuda_device, lm_dirs):
     _check(_lm(lm_dirs, "order3", cuda_device),
            np.random.RandomState(9).randint(130, 231, size=6), cuda_device, seed=9,
            W=1024)
+
+
+@pytest.mark.cuda
+def test_two_choice_tables(cuda_device, tmp_path):
+    """An LM whose arena and words table both need two-choice placement
+    (``large_lm_probe``'s generators, 30,000 n-grams over 2,000 words, as
+    a PROBING binary: KenLM keys): the kernel's second-bucket probe
+    against the plain version, on the probe's emissions and at n-best 4."""
+    from speecht_tpu_torch.tools import large_lm_probe
+
+    binary, _facts = large_lm_probe.synthesize(str(tmp_path), 30_000, 2_000)
+    lm = beam_device.DeviceLM.from_binary(binary, device=cuda_device)
+    assert lm.arena_two_choice and lm.words_two_choice
+    logp, lengths = large_lm_probe.probe_emissions(B=16, T=128)
+    for n_best in (1, 4):
+        result = chip_smoke.check_beam("two-choice", lm, logp, lengths, cuda_device,
+                                       n_best=n_best, weights=large_lm_probe.BEAM_WEIGHTS)
+        assert result["ok"]
 
 
 @pytest.mark.cuda

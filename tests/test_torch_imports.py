@@ -254,6 +254,17 @@ def test_every_module_of_the_sanitizer_and_hard_corpus_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_multiprocess_and_large_lm_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.tools.multiprocess_drill",
+        "speecht_tpu_torch.tools.large_lm_probe",
+        "speecht_tpu_torch.data.pipeline",
+        "speecht_tpu_torch.ops.beam_device",
+    ):
+        assert m in mods
+
+
 def test_the_package_does_not_import_chip_smoke():
     """``chip_smoke.py`` drives the package; the package (its drills
     among it) never imports the script."""

@@ -140,3 +140,41 @@ def test_prefetch_loader_raises_producer_errors():
     loader = pipeline.PrefetchLoader(broken, 4, torch.device("cpu"))
     with pytest.raises(OSError, match="disk gone"):
         list(loader)
+
+
+def test_prefetch_loader_abandoned_builds_no_further_batch():
+    """Closing an iteration retires the producer without another build. On
+    several ranks a build is a collective (``sync_bucket_dims``), so a rank
+    that stops at a step boundary must not start one its stopped peer will
+    never join: here such a build blocks, and the close must not wait on it."""
+    import threading
+    import time
+
+    closing = threading.Event()
+    builds, late_builds = [], []
+
+    def builder(bucket, time_bucket, label_bucket):
+        if closing.is_set():
+            late_builds.append(len(bucket))
+            time.sleep(30)  # a collective whose peer is gone
+        builds.append(len(bucket))
+        return pipeline.build_batch(bucket, time_bucket, label_bucket)
+
+    def samples():
+        while True:
+            yield from _samples(4, 8)
+
+    loader = pipeline.PrefetchLoader(samples, 2, torch.device("cpu"),
+                                     batch_builder=builder)
+    it = iter(loader)
+    next(it)
+    # the producer fills the queue and waits on its put with one more batch
+    deadline = time.time() + 30
+    while len(builds) < loader._QUEUE_CAPACITY + 2 and time.time() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.1)
+    closing.set()
+    t0 = time.perf_counter()
+    it.close()
+    assert time.perf_counter() - t0 < 5.0
+    assert late_builds == []
