@@ -315,7 +315,31 @@ drives the port's main path through its normal entry point, and fails
    required; each launch's wall time, backend, its ranks'
    ``ctc_alpha``/``ctc_beta`` launches (counted in each rank, checked
    against its steps and batches) and their peak memory.
-10. One JSON line listing every kernel, then the result line
+10. The corpus-scale soak, shortened: ``python -m
+   speecht_tpu_torch.tools.librispeech_scale_soak --hard --n-train 1000
+   --segment-steps 48 --steps-per-checkpoint 8 --max-segments 3`` (the
+   steps cut together from 150 and 25: at 150 the phase took 235 s alone,
+   at 120 265.7 s beside 6a, 6b and 9, against its 240 s; the corpus is
+   never cut) at full width in a process group of its own beside phases 6a, 6b, 8's
+   build and 9, each CLI process it starts (a process a segment and an
+   evaluate) run through ``multiprocess_drill``'s ``rank`` entry, which
+   writes its kernel launches and peak card memory at exit. Gates: every
+   process exits 0; segments 2 and 3 resume where the one before stopped;
+   after each segment the run directory is at most 5 x its largest
+   checkpoint x 1.01 (6 saves a segment: rotation), at most 5 files at
+   the end; every interval loss finite and segment 3's last below segment
+   1's first; ``ctc_alpha`` and ``ctc_beta`` once a train micro-step,
+   ``ctc_alpha`` once an evaluate batch, ``beam_device`` once a batch of
+   the ``--device-beam`` evaluates, conv0 never; ``SOAK DONE`` with the
+   test rates greedy and with the LM; ``soak_report`` renders the log.
+   Printed: the corpus and bucket lines, each segment's wall time, step
+   time p50/p95, prefetch stalls, checkpoint MB and dev rates, the train
+   processes' peak card memory. Then the rows of the corpus's widest
+   bucket through the model restored from the last checkpoint, and their
+   log-probs through ``ctc_alpha`` (with the history) and ``ctc_beta``
+   against the plain versions (phases 2 and 2b's checks, timed beside
+   the bounds and ``F.ctc_loss``); the soak's directory is then removed.
+11. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
@@ -331,6 +355,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -2114,8 +2140,6 @@ def lm_weights_for(work, data_dir, weights, device=torch.device("cuda"),
     keeps a share within ``keep_aim`` (20-30% by default) of that batch's
     frames (bisection; the share falls as the bias rises). Returns (the
     directory, the share kept)."""
-    import shutil
-
     from speecht_tpu_torch import vocabulary
     from speecht_tpu_torch.data.pipeline import to_device
     from speecht_tpu_torch.models.wav2letter import output_length
@@ -2669,8 +2693,6 @@ def audio_path(work, weights, lm_weights, lm_dir, kernels, card):
     """Phase 3f: ``preprocess`` (host, then ``--device``), ``evaluate
     --from-audio`` (greedy and with the LM) and ``evaluate`` on the cache
     ``preprocess --device`` wrote, on a synthetic 16 kHz FLAC corpus."""
-    import shutil
-
     t_phase = time.perf_counter()
     host_dir = os.path.join(work, "audio_host", "data")
     device_dir = os.path.join(work, "audio_device", "data")
@@ -3072,8 +3094,6 @@ def record_path(work, weights, lm_dir, audio_dir, audio_cache, kernels, card):
     so the collapse keeps about a quarter of a recording's frames and the
     beams have letters to search."""
     import glob
-    import shutil
-
     from speecht_tpu_torch import native
     from speecht_tpu_torch.ops import conv0
     from speecht_tpu_torch.ops.beam import BeamSearchDecoder, LanguageModelConfig
@@ -5226,6 +5246,203 @@ def finish_multiprocess_drill(started, kernels, card):
     return runs, summaries
 
 
+# -- phase 10: the corpus-scale soak, shortened -----------------------------------
+
+SOAK_N_TRAIN, SOAK_SEGMENT_STEPS, SOAK_INTERVAL, SOAK_SEGMENTS = 1000, 48, 8, 3
+SOAK_ARGS = ["--hard", "--n-train", str(SOAK_N_TRAIN), "--segment-steps",
+             str(SOAK_SEGMENT_STEPS), "--steps-per-checkpoint", str(SOAK_INTERVAL),
+             "--max-segments", str(SOAK_SEGMENTS)]
+SOAK_TIMEOUT_S = 900
+# the checkpoint manager's max_to_keep, and the slack of the directory's size
+SOAK_KEEP, SOAK_SIZE_SLACK = 5, 1.01
+# the dev evaluates' batches (--step-count 2) and the test split's (256 / 64)
+SOAK_DEV_BATCHES, SOAK_TEST_BATCHES = 2, 4
+
+
+def start_soak(work):
+    """Phase 10, started: ``python -m speecht_tpu_torch.tools.librispeech_scale_soak``
+    with ``SOAK_ARGS`` in ``<work>/soak``, in a process group of its own
+    (beside phases 6a, 6b, 8's build and 9), each CLI process through
+    ``multiprocess_drill``'s ``rank`` entry (its report in
+    ``<work>/soak_reports/<name>.json``). Returns (the process, its log's
+    path, the reports' directory, the soak's root, its start time)."""
+    root = os.path.join(work, "soak")
+    reports = os.path.join(work, "soak_reports")
+    os.makedirs(reports)
+    log_path = os.path.join(work, "soak.log")
+    launcher = f"speecht_tpu_torch.tools.multiprocess_drill rank {reports}/{{name}}.json"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "speecht_tpu_torch.tools.librispeech_scale_soak",
+             *SOAK_ARGS, "--out", root, "--launcher", launcher],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    return proc, log_path, reports, root, time.perf_counter()
+
+
+def soak_wants():
+    """{process name: the kernel launches its report must hold}."""
+    train = {"ctc_alpha": SOAK_SEGMENT_STEPS, "ctc_beta": SOAK_SEGMENT_STEPS, "conv0": 0,
+             "beam_device": 0}
+    wants = {}
+    for k in range(1, SOAK_SEGMENTS + 1):
+        wants[f"seg{k}-train"] = train
+        wants[f"seg{k}-dev"] = {"ctc_alpha": SOAK_DEV_BATCHES, "ctc_beta": 0, "conv0": 0,
+                                "beam_device": 0}
+        if k % 3 == 0:
+            wants[f"seg{k}-dev-beam"] = {"ctc_alpha": SOAK_DEV_BATCHES, "ctc_beta": 0,
+                                         "conv0": 0, "beam_device": SOAK_DEV_BATCHES}
+    wants["final-test"] = {"ctc_alpha": SOAK_TEST_BATCHES, "ctc_beta": 0, "conv0": 0,
+                           "beam_device": 0}
+    wants["final-test-beam"] = {"ctc_alpha": SOAK_TEST_BATCHES, "ctc_beta": 0, "conv0": 0,
+                                "beam_device": SOAK_TEST_BATCHES}
+    return wants
+
+
+def soak_widest_bucket(root, bucket, step, device=torch.device("cuda")):
+    """The widest bucket's rows through the model restored from the soak's
+    last checkpoint, and their log-probs through ``ctc_alpha`` (with the
+    history) and ``ctc_beta`` against the plain versions, timed (phases 2
+    and 2b's ``check_ctc``, ``check_beta``). Returns (alpha's result,
+    beta's)."""
+    from speecht_tpu_torch.data.pipeline import build_batch, to_device
+    from speecht_tpu_torch.models.wav2letter import output_length
+
+    split = os.path.join(root, "data", "preprocessed-power", "train")
+    rows = []
+    for name in sorted(os.listdir(split)):
+        with np.load(os.path.join(split, name)) as z:
+            if bucket - step < z["audio_fragments"].shape[0] <= bucket:
+                rows.append((z["audio_fragments"], z["transcript"]))
+    check(bool(rows), f"soak: no train row in the widest bucket T{bucket}")
+    model, _tx, _state = drill_model(root, "soak", device)
+    batch = build_batch(rows, time_bucket=step)
+    with torch.inference_mode():
+        logits = model(to_device(batch, device).features).float().cpu().numpy()
+    logit_lengths = output_length(torch.from_numpy(batch.seq_lengths)).numpy()
+    inputs = (logits, logit_lengths.astype(np.int32), batch.labels.astype(np.int32),
+              batch.label_lengths.astype(np.int32))
+    print(f"soak: the widest bucket T{bucket}: {len(rows)} rows of "
+          f"{[len(r[0]) for r in rows]} frames, labels of "
+          f"{batch.label_lengths.tolist()} letters; logits {logits.shape} from the model "
+          f"restored from the last checkpoint")
+    name = f"soak widest bucket T{bucket}"
+    alpha = check_ctc(name, inputs, device, history=True)
+    g = np.random.RandomState(10).uniform(0.5, 1.5, len(rows)).astype(np.float32)
+    beta = check_beta(name, inputs, g, device)
+    return alpha, beta
+
+
+def finish_soak(started, kernels, card, t_block_end):
+    """Phase 10, joined (see the module's docstring for its gates). Returns
+    ({path: launch counts}, the widest bucket's alpha and beta results)."""
+    from speecht_tpu_torch.tools import soak_report
+
+    proc, log_path, reports, root, t_phase = started
+    try:
+        code = proc.wait(timeout=max(SOAK_TIMEOUT_S - (time.perf_counter() - t_phase), 1))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        code = None
+    soak_s = time.perf_counter() - t_phase
+    waited_s = time.perf_counter() - t_block_end
+    with open(log_path) as f:
+        out = f.read()
+    for line in out.splitlines():
+        if line and not line.startswith(DRILL_ROW_LINES):
+            print(f"soak: {line}")
+    check(code == 0, f"soak: exit code {code} (time limit {SOAK_TIMEOUT_S} s)")
+    done = [ln for ln in out.splitlines() if ln.startswith("SOAK DONE: ")]
+    check(len(done) == 1, "soak: no SOAK DONE line")
+    final = json.loads(done[0][len("SOAK DONE: "):])
+    check(sorted(final) == ["steps", "test_beam_lm_ler", "test_beam_lm_wer", "test_ler",
+                            "test_wer"], f"soak: final record {final}")
+
+    with open(os.path.join(root, "soak_log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    by = {}
+    for r in records:
+        by.setdefault(r["kind"], []).append(r)
+    corpus, buckets = by["corpus"][0], by["buckets"][0]
+    widest = max(int(k) for k in buckets["occupancy"])
+    print(f"soak: corpus {json.dumps(corpus)}")
+    print(f"soak: buckets {json.dumps(buckets)}")
+    print(f"soak: the widest bucket T{widest} ({buckets['occupancy'][str(widest)]} rows; "
+          f"{widest // 2} logit frames)")
+
+    run_dir = os.path.join(root, "train", "soak")
+    ckpts = [n for n in os.listdir(run_dir) if re.fullmatch(r"ckpt-\d+\.pt", n)]
+    largest_mb = max(os.path.getsize(os.path.join(run_dir, n)) for n in ckpts) / (1 << 20)
+    check(len(ckpts) <= SOAK_KEEP, f"soak: {len(ckpts)} checkpoints kept: {sorted(ckpts)}")
+    segs, devs = by.get("train_segment", []), by.get("dev_greedy", [])
+    check(len(segs) == SOAK_SEGMENTS and len(devs) == SOAK_SEGMENTS,
+          f"soak: {len(segs)} segments and {len(devs)} dev evaluates logged")
+    saves = SOAK_SEGMENT_STEPS // SOAK_INTERVAL
+    for k, (seg, dev) in enumerate(zip(segs, devs), start=1):
+        steps = [i["step"] for i in seg["intervals"]]
+        # segment k resumed at step (k-1) x 150 and printed its 6 intervals
+        check(steps == [(k - 1) * SOAK_SEGMENT_STEPS + SOAK_INTERVAL * j
+                        for j in range(1, saves + 1)],
+              f"soak: segment {k}'s intervals at steps {steps}")
+        losses = [i["loss"] for i in seg["intervals"]]
+        check(all(math.isfinite(x) for x in losses), f"soak: segment {k} losses {losses}")
+        check(seg["ckpt_mb"] <= SOAK_KEEP * largest_mb * SOAK_SIZE_SLACK,
+              f"soak: segment {k}: the run directory {seg['ckpt_mb']} MB, over "
+              f"{SOAK_KEEP} x {largest_mb:.1f} MB x {SOAK_SIZE_SLACK}")
+        times = [i["step_time_s"] for i in seg["intervals"]]
+        stall_n = sum(e["n"] for e in seg["stall_events"])
+        stall_s = sum(e["s"] for e in seg["stall_events"])
+        print(f"soak: segment {k} (to step {seg['target_step']}): wall {seg['wall_s']} s; "
+              f"step time p50 {soak_report.pct(times, 0.5)!r} s, p95 "
+              f"{soak_report.pct(times, 0.95)!r} s; prefetch stalls {stall_n} ({stall_s!r} s); "
+              f"the run directory {seg['ckpt_mb']} MB ({saves} saves; a checkpoint "
+              f"{largest_mb:.1f} MB); interval losses {losses}; learning rates "
+              f"{[i['lr'] for i in seg['intervals']]}; dev greedy LER {dev['ler']} WER "
+              f"{dev['wer']} in {dev['wall_s']} s")
+    first_loss, last_loss = segs[0]["intervals"][0]["loss"], segs[-1]["intervals"][-1]["loss"]
+    check(last_loss < first_loss,
+          f"soak: segment {SOAK_SEGMENTS}'s last loss {last_loss} not below segment 1's "
+          f"first {first_loss}")
+    for beam in by.get("dev_beam_lm", []):
+        print(f"soak: dev --device-beam + LM at step {beam['step']}: LER {beam['ler']} WER "
+              f"{beam['wer']} in {beam['wall_s']} s")
+    print(f"soak: final {json.dumps(final)}")
+
+    runs = {}
+    for name, want in soak_wants().items():
+        path = os.path.join(reports, f"{name}.json")
+        check(os.path.exists(path), f"soak: the process {name} wrote no report")
+        with open(path) as f:
+            report = json.load(f)
+        got = {k.name: report["launches"][k.name] for k in kernels}
+        check(got == want, f"soak: {name} launched {got}, not {want}")
+        runs[f"soak: {name}"] = got
+        if name.endswith("-train"):
+            allocated, reserved = report["peak_mb"]
+            print(f"soak: {name}: peak card memory {allocated:.0f} MB allocated, "
+                  f"{reserved:.0f} MB reserved")
+    check(len(os.listdir(reports)) == len(runs),
+          f"soak: reports {sorted(os.listdir(reports))}")
+    print(f"soak: kernel launches {runs}")
+
+    rendered = subprocess.run(
+        [sys.executable, "-m", "speecht_tpu_torch.tools.soak_report", "--out", root],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in rendered.stdout.splitlines():
+        print(f"soak report: {line}")
+    check(rendered.returncode == 0 and "final held-out test, device-beam+LM" in rendered.stdout
+          and f"| {SOAK_SEGMENTS} | {SOAK_SEGMENTS * SOAK_SEGMENT_STEPS} |" in rendered.stdout,
+          f"soak: soak_report failed: {rendered.stderr[-2000:]}")
+    alpha, beta = soak_widest_bucket(root, widest, buckets["bucket_step"])
+    shutil.rmtree(root)
+    print(f"soak: phase 10 wall time {soak_s:.1f} s (beside phases 6a, 6b and 9; "
+          f"{waited_s:.1f} s after they ended), the widest bucket's kernels "
+          f"{time.perf_counter() - t_phase - soak_s:.1f} s; on {card}")
+    return runs, alpha, beta
+
+
 def kernel_entry(name, source, replaces, launches, r):
     return {
         "name": name,
@@ -5417,8 +5634,8 @@ def main() -> int:
         drill_runs = drills_path(work, kernels, card)
         phase_time("5")
         # 6a. the kernels under the sanitizers; 6b. the host C++ under ASan
-        # and UBSan; 9. the multi-process drill; phase 7's corpus and phase
-        # 8's LM written beside them
+        # and UBSan; 9. the multi-process drill; 10. the soak; phase 7's
+        # corpus and phase 8's LM written beside them
         hard_root = os.path.join(work, "hard")
         spawn = multiprocessing.get_context("spawn")
         torch.cuda.empty_cache()
@@ -5428,19 +5645,23 @@ def main() -> int:
                                           os.environ["SPEECHT_DEVICE_LM_CACHE"])
             native_sanitize = start_native_sanitize(work)
             mp_drill = start_multiprocess_drill(work)
+            soak = start_soak(work)
             try:
                 sanitizer_verdicts = sanitize_phase(work, lm_dir, card)
                 finish_native_sanitize(native_sanitize, card)
                 mp_drill_runs, _summaries = finish_multiprocess_drill(mp_drill, kernels, card)
+                hard_corpus_written = hard_corpus_future.result()
+                large_lm_built = large_lm_future.result()
+                soak_runs, soak_alpha, soak_beta = finish_soak(
+                    soak, kernels, card, time.perf_counter())
             finally:
-                # a phase that failed leaves no process of 6b or 9 running
+                # a phase that failed leaves no process of 6b, 9 or 10 running
                 if native_sanitize[0].poll() is None:
                     native_sanitize[0].kill()
-                if mp_drill[0].poll() is None:
-                    os.killpg(mp_drill[0].pid, 9)
-            hard_corpus_written = hard_corpus_future.result()
-            large_lm_built = large_lm_future.result()
-        phase_time("6a, 6b and 9 (phase 7's corpus and phase 8's LM beside them)")
+                for started in (mp_drill, soak):
+                    if started[0].poll() is None:
+                        os.killpg(started[0].pid, 9)
+        phase_time("6a, 6b, 9 and 10 (phase 7's corpus and phase 8's LM beside them)")
         # 7. the hard corpus: the pilot, then the search drill on its model
         hard_runs, hard_facts = hard_path(work, hard_root, hard_corpus_written, kernels,
                                           card)
@@ -5450,7 +5671,7 @@ def main() -> int:
                                                 kernels, card)
         phase_time("8")
 
-    # 10. kernels line, then the result line
+    # 11. kernels line, then the result line
     alpha_entry = kernel_entry(
         "ctc_alpha", "speecht_tpu_torch/csrc/ctc_alpha.cu",
         "speecht_tpu/ops/ctc_pallas.py:145", eval_launches["ctc_alpha"], alpha_main,
@@ -5531,6 +5752,15 @@ def main() -> int:
     for entry in (alpha_entry, beam_entry):
         entry["launches_by_path"].update(
             {path: n[entry["name"]] for path, n in large_lm_runs.items()})
+    for entry in (alpha_entry, beta_entry, conv0_entry, beam_entry):
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in soak_runs.items()})
+    alpha_entry["soak_widest_bucket"] = {
+        key: soak_alpha[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "history")}
+    beta_entry["soak_widest_bucket"] = {
+        key: soak_beta[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "pair_ms", "library_pair_ms")}
     beam_entry["large_lm"] = large_lm
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["us_per_frame"] = beam_main["us_per_frame"]

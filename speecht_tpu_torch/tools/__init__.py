@@ -25,11 +25,16 @@
   ``--grad-accum``, a worker's SIGTERM and the job's relaunch;
 - ``large_lm_probe``: a 10^7-n-gram LM (the JAX tool's ARPA, converted to
   a PROBING binary) through the device LM tables, the scorer and the beam,
-  timed against a tiny LM.
+  timed against a tiny LM;
+- ``librispeech_scale_soak``: the corpus-scale soak (20,000 utterances
+  with LibriSpeech's durations, the JAX tool's files for the same seed;
+  training in segments, each segment and evaluate a process of its own
+  resuming from the rotated checkpoints), and ``soak_report``, its log
+  as markdown.
 
 Each runs on the card unless ``--device cpu`` is given. ``tools/``'s
 ``overfit_check``, ``train_features_check`` on its own corpus,
 ``device_beam_check`` and ``record_check`` train on one bundled
 LibriSpeech utterance that the repository does not hold, so they wait for
-it; ``librispeech_scale_soak`` takes hours of card time.
+it.
 """

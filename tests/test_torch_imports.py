@@ -265,6 +265,17 @@ def test_every_module_of_the_multiprocess_and_large_lm_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_scale_soak_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.tools.librispeech_scale_soak",
+        "speecht_tpu_torch.tools.soak_report",
+        "speecht_tpu_torch.tools.hard_corpus",
+        "speecht_tpu_torch.train.checkpoint",
+    ):
+        assert m in mods
+
+
 def test_the_package_does_not_import_chip_smoke():
     """``chip_smoke.py`` drives the package; the package (its drills
     among it) never imports the script."""
