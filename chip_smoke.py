@@ -317,16 +317,18 @@ drives the port's main path through its normal entry point, and fails
    against its steps and batches) and their peak memory.
 10. The corpus-scale soak, shortened: ``python -m
    speecht_tpu_torch.tools.librispeech_scale_soak --hard --n-train 1000
-   --segment-steps 48 --steps-per-checkpoint 8 --max-segments 3`` (the
-   steps cut together from 150 and 25: at 150 the phase took 235 s alone,
-   at 120 265.7 s beside 6a, 6b and 9, against its 240 s; the corpus is
-   never cut) at full width in a process group of its own beside phases 6a, 6b, 8's
+   --segment-steps 32 --steps-per-checkpoint 16 --max-segments 3`` (the
+   steps and the interval cut from 150 and 25: at 150 the phase took 235 s
+   alone, at 120 265.7 s beside 6a, 6b and 9, against its 240 s; then from
+   48 and 8, whose 6 saves a segment held the soak, the block's last
+   phase, for 31-52 s a segment, to keep the script's margin under its
+   limit once phase 11 ran after it; the corpus is never cut) at full width in a process group of its own beside phases 6a, 6b, 8's
    build and 9, each CLI process it starts (a process a segment and an
    evaluate) run through ``multiprocess_drill``'s ``rank`` entry, which
    writes its kernel launches and peak card memory at exit. Gates: every
    process exits 0; segments 2 and 3 resume where the one before stopped;
    after each segment the run directory is at most 5 x its largest
-   checkpoint x 1.01 (6 saves a segment: rotation), at most 5 files at
+   checkpoint x 1.01 (2 saves a segment: rotation in segment 3), at most 5 files at
    the end; every interval loss finite and segment 3's last below segment
    1's first; ``ctc_alpha`` and ``ctc_beta`` once a train micro-step,
    ``ctc_alpha`` once an evaluate batch, ``beam_device`` once a batch of
@@ -339,7 +341,26 @@ drives the port's main path through its normal entry point, and fails
    log-probs through ``ctc_alpha`` (with the history) and ``ctc_beta``
    against the plain versions (phases 2 and 2b's checks, timed beside
    the bounds and ``F.ctc_loss``); the soak's directory is then removed.
-11. One JSON line listing every kernel, then the result line
+11. The measurement tools (``speecht_tpu_torch/tools/``) in-process at
+   their default, full-width shapes, after phase 8, each run's launch
+   counts set to 0 just before and read just after: ``layer_breakdown``
+   (B=64, T=1024, bf16; the 11-layer prefix against ``model(x)``, within
+   1e-6 of the largest logit and reported bit-equal or not; the layers'
+   FLOPs summing to 1615.89 GFLOP; no share of the dense bf16 peak over
+   100%), once on cuDNN (conv0 never) and once with
+   SPEECHT_PALLAS_CONV0=1 (conv0 1 + 5 x 30 times a prefix);
+   ``perf_probe`` (every probe line printed, every number finite,
+   ``ctc_alpha`` once an eval step and a device part); ``device_beam_probe``
+   (its 350,000-n-gram ARPA and tables, B=64, T=136, W=100: ``beam_device``
+   once a call, the last call's ids and lengths equal to the plain
+   search's on every row, the bound of this run's work);
+   ``pipeline_soak`` (512 utterances, B=64, 121 steps: the loss finite,
+   ``ctc_alpha`` and ``ctc_beta`` once a step, conv0 never; the
+   synchronizing CUDA operations in the timed loop counted with torch's
+   sync debug mode, reported); ``arpa_to_kenlm_binary`` on phase 3d's
+   ARPA (byte-equal to ``native.lm_write_binary``'s file, 1 and the usage
+   on one argument).
+12. One JSON line listing every kernel, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits with code 2 before doing anything. With
@@ -5248,7 +5269,7 @@ def finish_multiprocess_drill(started, kernels, card):
 
 # -- phase 10: the corpus-scale soak, shortened -----------------------------------
 
-SOAK_N_TRAIN, SOAK_SEGMENT_STEPS, SOAK_INTERVAL, SOAK_SEGMENTS = 1000, 48, 8, 3
+SOAK_N_TRAIN, SOAK_SEGMENT_STEPS, SOAK_INTERVAL, SOAK_SEGMENTS = 1000, 32, 16, 3
 SOAK_ARGS = ["--hard", "--n-train", str(SOAK_N_TRAIN), "--segment-steps",
              str(SOAK_SEGMENT_STEPS), "--steps-per-checkpoint", str(SOAK_INTERVAL),
              "--max-segments", str(SOAK_SEGMENTS)]
@@ -5381,7 +5402,7 @@ def finish_soak(started, kernels, card, t_block_end):
     saves = SOAK_SEGMENT_STEPS // SOAK_INTERVAL
     for k, (seg, dev) in enumerate(zip(segs, devs), start=1):
         steps = [i["step"] for i in seg["intervals"]]
-        # segment k resumed at step (k-1) x 150 and printed its 6 intervals
+        # segment k resumed where segment k-1 stopped: an interval line a save
         check(steps == [(k - 1) * SOAK_SEGMENT_STEPS + SOAK_INTERVAL * j
                         for j in range(1, saves + 1)],
               f"soak: segment {k}'s intervals at steps {steps}")
@@ -5441,6 +5462,226 @@ def finish_soak(started, kernels, card, t_block_end):
           f"{waited_s:.1f} s after they ended), the widest bucket's kernels "
           f"{time.perf_counter() - t_phase - soak_s:.1f} s; on {card}")
     return runs, alpha, beta
+
+
+# -- phase 11: the measurement tools ---------------------------------------
+
+# the forward's FLOPs at B=64, T=1024 and the full width, computed from the
+# shapes (2 B t w c_in c_out a layer): 100.66 + 7 x 28.67 + 1048.58 +
+# 262.14 + 3.80
+FORWARD_GFLOP = 1615.89
+PREFIX_RTOL = 1e-6  # the 11-layer prefix against model(x): the same modules
+PROBE_LINES = ("greedy_eval B64T1024: ", "forward_only B64T1024: ",
+               "beam_device_part B64T512: ", "collapsed shape (64, 256, 29)", "cpu_count ",
+               "host beam 1 utt: ", "device_part+fetch logp: ", "frontend B64 164k-samples: ")
+
+
+def run_tool(label, kernels, fn, *args):
+    """``fn(*args)`` with every kernel's launch count set to 0 just before
+    and read just after; its output is echoed with ``label`` in front.
+    Returns (its result, the counts, its output)."""
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    launches = {k.name: k.launches for k in kernels}
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{label}: {line}")
+    return result, launches, out
+
+
+def check_launches(label, launches, **want):
+    """Each kernel's launches as ``want`` names them, 0 for the others."""
+    want = {name: want.get(name, 0) for name in launches}
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+
+
+def layer_breakdown_path(kernels, card):
+    """11a. ``layer_breakdown`` at its defaults (B=64, T=1024, bf16, the
+    full width), on the default path and with SPEECHT_PALLAS_CONV0=1
+    (conv_0's row then the conv0 kernel, 1 + 5 x 30 launches a prefix):
+    the 11-layer prefix against ``model(x)``, the FLOPs' sum, no share of
+    the peak over 100%. Returns each run's launches."""
+    from speecht_tpu_torch.ops import conv0
+    from speecht_tpu_torch.tools import layer_breakdown as lb
+
+    model, x = lb.setup(lb.parse_args([]))
+    B, T, _F = x.shape
+    gflop = sum(lb.flops_layer(model.config, B, T, i) for i in range(11)) / 1e9
+    check(round(gflop, 2) == FORWARD_GFLOP,
+          f"layer_breakdown: the layers' FLOPs sum to {gflop!r} GFLOP, not {FORWARD_GFLOP}")
+
+    def table():
+        rows = lb.breakdown(model, x)
+        lb.print_table(rows, model.config.compute_dtype)
+        return rows
+
+    runs, tables = {}, {}
+    for label, kernel_path in (("layer_breakdown", False),
+                               ("layer_breakdown (SPEECHT_PALLAS_CONV0=1)", True)):
+        if kernel_path:
+            os.environ[conv0.ENV_VAR] = "1"
+        try:
+            with torch.inference_mode():
+                whole, prefix = model(x), lb.prefix_forward(model, x, 11)
+            err = float((prefix - whole).abs().max() / whole.abs().max())
+            print(f"tools: {label}: the 11-layer prefix against model(x): bit-equal "
+                  f"{torch.equal(prefix, whole)}, max difference {err!r} of the largest "
+                  f"logit (limit {PREFIX_RTOL})")
+            check(err <= PREFIX_RTOL, f"{label}: the prefix differs from the model")
+            del whole, prefix
+            rows, launches, _out = run_tool(label, kernels, table)
+        finally:
+            os.environ.pop(conv0.ENV_VAR, None)
+        over = [r["layer"] for r in rows if r["peak_share"] > 100]
+        check(not over, f"{label}: {over} over 100% of the peak (a missing synchronise?)")
+        check_launches(label, launches,
+                       conv0=11 * (1 + lb.TRIALS * lb.ITERS) if kernel_path else 0)
+        runs[label], tables[label] = launches, rows
+    default, kernel = tables.values()
+    print(f"tools: layer_breakdown: FLOPs {gflop!r} GFLOP; the whole forward "
+          f"{default[-1]['prefix_ms']!r} ms (cuDNN conv_0 {default[0]['ms']!r} ms), "
+          f"{kernel[-1]['prefix_ms']!r} ms with the conv0 kernel (conv_0 "
+          f"{kernel[0]['ms']!r} ms); on {card}")
+    return runs
+
+
+def perf_probe_path(kernels, card):
+    """11b. ``perf_probe`` at its defaults: every probe line printed and
+    finite; ``ctc_alpha`` once an eval step and a device part."""
+    from speecht_tpu_torch.tools import perf_probe as pp
+
+    args = pp.parse_args([])
+    model, inputs, device = pp.setup(args)
+    result, launches, out = run_tool("perf_probe", kernels, pp.probe, model, inputs,
+                                     device, args.iters)
+    missing = [line for line in PROBE_LINES if line not in out]
+    check(not missing, f"perf_probe: lines missing: {missing}")
+    numbers = [v for v in result.values() if isinstance(v, (int, float))]
+    numbers += [*result["collapsed_shape"], *result["lengths_head"]]
+    check(all(math.isfinite(v) for v in numbers),
+          f"perf_probe: a number is not finite: {result}")
+    check_launches("perf_probe", launches,
+                   ctc_alpha=2 * (args.iters + 1) + 1 + pp.FETCH_REPEATS)
+    print(f"tools: perf_probe: {result!r}; on {card}")
+    return launches
+
+
+def device_beam_probe_path(kernels, card):
+    """11c. ``device_beam_probe`` at its defaults (the 350,000-n-gram LM,
+    B=64, T=136, W=100): ``beam_device`` once a call; the last call's ids
+    and lengths against the plain search's on every row, and the bound of
+    this run's work."""
+    from speecht_tpu_torch.tools import device_beam_probe as dbp
+
+    args = dbp.parse_args([])
+    r, launches, _out = run_tool("device_beam_probe", kernels, dbp.probe, args)
+    check_launches("device_beam_probe", launches,
+                   beam_device=1 + dbp.TRIALS * dbp.ITERS)
+    lengths = r["lengths"].cpu().numpy()
+    lae = LogAddExpCount(lengths)
+    t0 = time.perf_counter()
+    with lae:
+        want = [t.cpu() for t in r["fn"].plain(r["logp"], r["lengths"], *dbp.BEAM_WEIGHTS)]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = [r["ids"].cpu(), r["lens"].cpu()]
+    rows_equal = int(((got[0] == want[0]).all(1) & (got[1] == want[1])).sum())
+    spec, T = r["fn"].spec, r["logp"].shape[1]
+    bound_ms, bound_by, _counts = beam_bound_ms(
+        lengths, spec.W, spec.top_k(r["logp"].shape[2]), spec.H, 1, T,
+        spec.lm.hbm_bytes(), lae.count(T))
+    ms = [t["ms"] for t in r["trials"]]
+    print(f"tools: device_beam_probe: rows with equal ids and lengths {rows_equal}/"
+          f"{len(lengths)} against the plain search (its {plain_ms!r} ms with the count of "
+          f"log-add-exps, host clock); the kernel {ms!r} ms a batch, bound {bound_ms!r} ms "
+          f"({bound_by}); LM tables {lm_tables(spec.lm)}; on {card}")
+    check(rows_equal == len(lengths), "device_beam_probe: the kernel disagrees with the "
+          "plain search")
+    return launches, {"ms": ms, "utt_s": [t["utt_s"] for t in r["trials"]],
+                      "first_s": r["first_s"], "bound_ms": bound_ms, "bound_by": bound_by,
+                      "plain_ms": plain_ms, "rows_equal": rows_equal}
+
+
+def pipeline_soak_path(kernels, card):
+    """11d. ``pipeline_soak`` at its defaults (512 utterances, B=64, 121
+    steps), with torch's sync debug mode on to count the synchronizing
+    CUDA operations in the timed loop (reported, not gated): the loss
+    finite, ``ctc_alpha`` (with the history) and ``ctc_beta`` once a
+    step, conv0 never."""
+    import collections
+    import warnings
+
+    from speecht_tpu_torch.tools import pipeline_soak as ps
+
+    args = ps.parse_args([])
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        syncs.append((time.perf_counter(), f"{os.path.basename(filename)}:{lineno}",
+                      str(message)))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r, launches, _out = run_tool("pipeline_soak", kernels, ps.run, args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    check(math.isfinite(r["loss"]), f"pipeline_soak: loss {r['loss']!r}")
+    check_launches("pipeline_soak", launches, ctc_alpha=args.steps, ctc_beta=args.steps)
+    clock_end = r["clock_start"] + r["ms_per_step"] * r["n_timed"] / 1e3
+    in_loop = collections.Counter(
+        where for t, where, message in syncs
+        if r["clock_start"] <= t <= clock_end and "synchroniz" in message)
+    n_syncs = sum(in_loop.values())
+    print(f"tools: pipeline_soak: {r['ms_per_step']!r} ms a step over {r['n_timed']} steps, "
+          f"loss {r['loss']!r}, {r['stalls']} prefetch stalls, the cache {r['cache_s']:.1f} s; "
+          f"synchronizing CUDA operations in the timed loop {n_syncs} "
+          f"({n_syncs / r['n_timed']:.2f} a step), by where torch was called: "
+          f"{dict(in_loop)}; on {card}")
+    return launches
+
+
+def arpa_tool_path(work, lm_dir, card):
+    """11e. ``arpa_to_kenlm_binary`` on phase 3d's ARPA: the tool's file
+    byte-equal to ``native.lm_write_binary``'s, a KenLM binary; 1 on a
+    wrong argument count."""
+    from speecht_tpu_torch import native
+    from speecht_tpu_torch.tools import arpa_to_kenlm_binary
+
+    arpa = os.path.join(lm_dir, "model.arpa")
+    tool_out, direct = os.path.join(work, "tool.binary"), os.path.join(work, "direct.binary")
+    t0 = time.perf_counter()
+    rc, _launches, out = run_tool("arpa_to_kenlm_binary", [], arpa_to_kenlm_binary.main,
+                                  [arpa, tool_out])
+    tool_s = time.perf_counter() - t0
+    check(rc == 0 and f"wrote {tool_out}" in out, f"arpa_to_kenlm_binary: rc {rc}, {out!r}")
+    native.lm_write_binary(arpa, direct)
+    with open(tool_out, "rb") as f, open(direct, "rb") as g:
+        same = f.read() == g.read()
+    bad, _launches, usage = run_tool("arpa_to_kenlm_binary", [], arpa_to_kenlm_binary.main,
+                                     [arpa])
+    print(f"tools: arpa_to_kenlm_binary: {os.path.getsize(tool_out)} bytes in {tool_s:.2f} s, "
+          f"byte-equal to native.lm_write_binary's {same}, a KenLM binary "
+          f"{native.lm_is_binary(tool_out)}; one argument: rc {bad}; on {card}")
+    check(same and native.lm_is_binary(tool_out), "arpa_to_kenlm_binary: another file")
+    check(bad == 1 and "Usage:" in usage, "arpa_to_kenlm_binary: no usage on one argument")
+
+
+def measurement_tools_path(work, lm_dir, kernels, card):
+    """Phase 11: the five tools at their default shapes. Returns (the
+    launches of each tool's run, the beam probe's facts)."""
+    t0 = time.perf_counter()
+    runs = layer_breakdown_path(kernels, card)
+    runs["perf_probe"] = perf_probe_path(kernels, card)
+    runs["device_beam_probe"], beam_probe = device_beam_probe_path(kernels, card)
+    runs["pipeline_soak"] = pipeline_soak_path(kernels, card)
+    arpa_tool_path(work, lm_dir, card)
+    print(f"tools: phase 11 wall time {time.perf_counter() - t0:.1f} s; on {card}")
+    return runs, beam_probe
 
 
 def kernel_entry(name, source, replaces, launches, r):
@@ -5670,8 +5911,11 @@ def main() -> int:
         large_lm_runs, large_lm = large_lm_path(work, large_lm_built, data_dir, lm_weights,
                                                 kernels, card)
         phase_time("8")
+        # 11. the measurement tools at their default shapes
+        tool_runs, beam_probe = measurement_tools_path(work, lm_dir, kernels, card)
+        phase_time("11")
 
-    # 11. kernels line, then the result line
+    # 12. kernels line, then the result line
     alpha_entry = kernel_entry(
         "ctc_alpha", "speecht_tpu_torch/csrc/ctc_alpha.cu",
         "speecht_tpu/ops/ctc_pallas.py:145", eval_launches["ctc_alpha"], alpha_main,
@@ -5755,6 +5999,8 @@ def main() -> int:
     for entry in (alpha_entry, beta_entry, conv0_entry, beam_entry):
         entry["launches_by_path"].update(
             {path: n[entry["name"]] for path, n in soak_runs.items()})
+        entry["launches_by_path"].update(
+            {path: n[entry["name"]] for path, n in tool_runs.items()})
     alpha_entry["soak_widest_bucket"] = {
         key: soak_alpha[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by", "history")}
@@ -5762,6 +6008,7 @@ def main() -> int:
         key: soak_beta[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by", "pair_ms", "library_pair_ms")}
     beam_entry["large_lm"] = large_lm
+    beam_entry["device_beam_probe"] = beam_probe
     beam_entry["host_beam_ms"] = beam_main["host_beam_ms"]
     beam_entry["us_per_frame"] = beam_main["us_per_frame"]
     beam_entry["lm_share"] = beam_main["lm_share"]

@@ -45,6 +45,19 @@ def resolve_device(name: str) -> torch.device:
     return pmesh.rank_device(name)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_name(device: torch.device) -> str:
+    """What a measurement ran on: the card's name, or ``cpu``."""
+    if device.type == "cuda":
+        return f"{device} ({torch.cuda.get_device_name(device)})"
+    return str(device)
+
+
 def build_model(input_size: int, flags, seed: int = 0, mesh=None) -> Wav2Letter:
     """Wav2Letter with the reference dimensions by default;
     --base-channels/--wide-channels/--num-body-layers scale it. Initial

@@ -28,6 +28,7 @@ groups, and every helper is the identity.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import math
@@ -90,12 +91,21 @@ def placement(device: str) -> tuple[str, torch.device, str]:
     )
 
 
+def destroy_at_exit() -> None:
+    """Ends the process group, if one is left, before the interpreter's
+    own teardown: left to it, gloo's threads can abort a rank whose run
+    succeeded ("terminate called without an active exception")."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def init_distributed(device: str = "cuda") -> bool:
     """Joins the process group when launched under ``torchrun``'s
     environment with ``WORLD_SIZE`` above 1 (or when the caller already
     initialized ``torch.distributed``), makes the host groups and prints
     the ``distributed:`` line. Returns False, doing nothing, for one
-    process."""
+    process. A group joined here is destroyed at the process's exit
+    (:func:`destroy_at_exit`); a caller's own group is left to it."""
     if not comm.initialized():
         if _env_int("WORLD_SIZE", 1) <= 1 or "RANK" not in os.environ:
             return False
@@ -107,6 +117,7 @@ def init_distributed(device: str = "cuda") -> bool:
             world_size=_env_int("WORLD_SIZE", 1),
             timeout=datetime.timedelta(minutes=10),
         )
+        atexit.register(destroy_at_exit)
     comm.setup_host_groups()
     backend, dev, note = placement(device)
     if dev.type == "cuda":

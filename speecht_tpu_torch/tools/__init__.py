@@ -1,5 +1,6 @@
-"""Hardware-validation drills of the port: the counterparts of the repo's
-``tools/`` drills, driving ``speecht_tpu_torch.cli.CLI`` end to end.
+"""Hardware-validation drills and measurement tools of the port: the
+counterparts of the repo's ``tools/``, the drills driving
+``speecht_tpu_torch.cli.CLI`` end to end.
 
 - ``synthetic_corpus``: the tone-speech corpus (each character a tone
   burst) and its unigram LM, the same files as ``tools/synthetic_convergence.py``
@@ -30,7 +31,14 @@
   with LibriSpeech's durations, the JAX tool's files for the same seed;
   training in segments, each segment and evaluate a process of its own
   resuming from the rotated checkpoints), and ``soak_report``, its log
-  as markdown.
+  as markdown;
+- the measurement tools: ``layer_breakdown`` (the forward's ms layer by
+  layer, from timed prefixes, beside each layer's FLOPs), ``perf_probe``
+  (the eval step, the forward, the beam's device part, one host-beam
+  utterance, the readback and the front end), ``device_beam_probe`` (the
+  device beam on a 350,000-n-gram LM), ``pipeline_soak`` (the sustained
+  train loop through the loader) and ``arpa_to_kenlm_binary`` (an ARPA LM
+  to a KenLM PROBING binary, on the host).
 
 Each runs on the card unless ``--device cpu`` is given. ``tools/``'s
 ``overfit_check``, ``train_features_check`` on its own corpus,

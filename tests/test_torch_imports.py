@@ -276,6 +276,19 @@ def test_every_module_of_the_scale_soak_slice_is_checked():
         assert m in mods
 
 
+def test_every_module_of_the_measurement_tools_slice_is_checked():
+    mods = set(_modules())
+    for m in (
+        "speecht_tpu_torch.tools.arpa_to_kenlm_binary",
+        "speecht_tpu_torch.tools.layer_breakdown",
+        "speecht_tpu_torch.tools.perf_probe",
+        "speecht_tpu_torch.tools.device_beam_probe",
+        "speecht_tpu_torch.tools.pipeline_soak",
+        "speecht_tpu_torch.execution",
+    ):
+        assert m in mods
+
+
 def test_the_package_does_not_import_chip_smoke():
     """``chip_smoke.py`` drives the package; the package (its drills
     among it) never imports the script."""

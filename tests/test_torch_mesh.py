@@ -110,3 +110,42 @@ def test_sync_bucket_dims_under_two_ranks(synced):
         assert tuple(r["dims"]) == (20, 7)
         np.testing.assert_array_equal(r["gathered"], [[0] * 3] * 2 + [[1] * 3] * 2)
     np.testing.assert_array_equal(synced[1]["local"], [[1] * 3] * 2)
+
+
+EXIT_PROBE = """
+import atexit
+import torch.distributed as dist
+# registered first, so it runs after the handlers registered later
+atexit.register(lambda: print("initialized at exit:", dist.is_initialized(), flush=True))
+from speecht_tpu_torch.parallel import mesh
+assert mesh.init_distributed("cpu")
+dist.barrier()
+"""
+
+
+def test_joined_group_is_destroyed_before_the_interpreter_exits():
+    """A group ``init_distributed`` joins from the launcher's environment
+    is destroyed by an exit handler: left to the interpreter's teardown,
+    gloo's threads aborted ranks of the multi-process drill after runs
+    that succeeded ("terminate called without an active exception")."""
+    import os
+    import subprocess
+    import sys
+
+    from speecht_tpu_torch.tools.multiprocess_drill import free_port
+
+    port = str(free_port())
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", EXIT_PROBE],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                     LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                     OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out
+        assert "initialized at exit: False" in out, out
