@@ -18,12 +18,17 @@ Counterpart of ``speecht_tpu/data/pipeline.py``:
   with ``non_blocking`` copies on a side stream, so the copy of batch N+1
   overlaps the compute of batch N. It counts its stalls (the consumer
   waiting on an empty queue) for the training loop's ``prefetch_stalls``
-  scalars.
+  scalars, and, while a profiler records, logs its stages as spans
+  (``telemetry.py``): on its thread ``loader.produce`` (reading the
+  samples, with ``loader.build`` and ``loader.h2d`` inside it) and
+  ``loader.put`` (blocked on a full queue), and on the consumer's
+  ``loader.wait``, each with the batch's sequence number.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -32,7 +37,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from speecht_tpu_torch import vocabulary
+from speecht_tpu_torch import telemetry, vocabulary
 from speecht_tpu_torch.parallel import comm
 from speecht_tpu_torch.parallel.mesh import sync_bucket_dims
 
@@ -275,9 +280,16 @@ class PrefetchLoader:
     them early.
 
     ``stall_count``/``stall_seconds`` add up, over the loader's lifetime,
-    the waits of more than 2 ms for a batch, the first batch of each pass
-    excepted (the producer cannot be ahead yet), as the JAX package's
-    loader counts them.
+    the waits of more than 2 ms for a batch that was not ready, the first
+    batch of each pass excepted (the producer cannot be ahead yet), as the
+    JAX package's loader counts them; a wait is the ``loader.wait`` span's
+    clock reads.
+
+    The producer stamps each batch's stages (``time.time_ns()``, a few
+    reads a batch) into the item it queues: the batch's read, build and
+    copy, and the put of the batch before it. The consumer moves them into
+    ``telemetry.LOG`` as it takes the batch while a profiler records.
+    Batches are numbered over the loader's life.
     """
 
     _SENTINEL = object()
@@ -302,29 +314,45 @@ class PrefetchLoader:
         self._max_steps = max_steps
         self._group_by_length = group_by_length
         self._transfer_dtype = transfer_dtype
+        self._sequence = itertools.count()
         self.stall_count = 0
         self.stall_seconds = 0.0
 
     def _worker(self, out_queue: queue.Queue, stop: threading.Event, errors):
         cuda = self._device.type == "cuda"
         stream = torch.cuda.Stream(self._device) if cuda else None
+        build = [0, 0]
+
+        def timed_builder(*args, **kwargs):
+            build[0] = time.time_ns()
+            out = self._batch_builder(*args, **kwargs)
+            build[1] = time.time_ns()
+            return out
+
         try:
+            produce, last_put = time.time_ns(), None
             for host in batch_iterator(
                 self._factory(),
                 self._batch_size,
                 self._time_bucket,
                 max_steps=self._max_steps,
                 group_by_length=self._group_by_length,
-                batch_builder=self._batch_builder,
+                batch_builder=timed_builder,
             ):
                 if stop.is_set():
                     return
+                seq = next(self._sequence)
+                h2d = time.time_ns()
                 dev = to_device(host, self._device, self._transfer_dtype, stream)
                 ready = None
                 if cuda:
                     ready = torch.cuda.Event()
                     ready.record(stream)
-                out_queue.put((host, dev, ready))
+                put = time.time_ns()
+                stages = (seq, produce, put, tuple(build), (h2d, put), last_put)
+                out_queue.put((host, dev, ready, stages))
+                produce = time.time_ns()
+                last_put = (seq, put, produce)
                 # an abandoned iteration (the put returned to the drain):
                 # build no further batch. On several ranks a build is a
                 # collective (sync_bucket_dims) that a peer stopped at
@@ -335,6 +363,20 @@ class PrefetchLoader:
             errors.append(e)
         finally:
             out_queue.put(self._SENTINEL)
+
+    @staticmethod
+    def _log_stages(stages: tuple, thread: int) -> None:
+        """Logs a taken batch's stamped stages while a profiler records."""
+        if not telemetry.recording():
+            return
+        seq, start, end, build, h2d, last_put = stages
+        log = telemetry.LOG
+        parent = log.add("loader.produce", thread, start, end, batch=seq)
+        log.add("loader.build", thread, *build, parent, seq)
+        log.add("loader.h2d", thread, *h2d, parent, seq)
+        if last_put is not None:
+            put_seq, put_start, put_end = last_put
+            log.add("loader.put", thread, put_start, put_end, batch=put_seq)
 
     def __iter__(self):
         out_queue: queue.Queue = queue.Queue(maxsize=self._QUEUE_CAPACITY)
@@ -347,26 +389,28 @@ class PrefetchLoader:
         first = True
         try:
             while True:
-                try:
-                    item = out_queue.get_nowait()
-                except queue.Empty:
-                    t0 = time.perf_counter()
-                    item = out_queue.get()
-                    waited = time.perf_counter() - t0
-                    if waited > 0.002 and item is not self._SENTINEL and not first:
-                        self.stall_count += 1
-                        self.stall_seconds += waited
-                first = False
+                with telemetry.span("loader.wait", clock=True) as wait:
+                    try:
+                        item, behind = out_queue.get_nowait(), False
+                    except queue.Empty:
+                        item, behind = out_queue.get(), True
+                    if item is not self._SENTINEL:
+                        host, dev, ready, stages = item
+                        wait.batch = stages[0]
+                        if ready is not None:
+                            current = torch.cuda.current_stream(self._device)
+                            current.wait_event(ready)
+                            for field in dataclasses.fields(dev):
+                                getattr(dev, field.name).record_stream(current)
                 if item is self._SENTINEL:
                     if errors:
                         raise errors[0]
                     return
-                host, dev, ready = item
-                if ready is not None:
-                    current = torch.cuda.current_stream(self._device)
-                    current.wait_event(ready)
-                    for field in dataclasses.fields(dev):
-                        getattr(dev, field.name).record_stream(current)
+                self._log_stages(stages, thread.native_id)
+                if behind and wait.seconds > 0.002 and not first:
+                    self.stall_count += 1
+                    self.stall_seconds += wait.seconds
+                first = False
                 yield host, dev
         finally:
             # an abandoned iteration: unblock and retire the worker

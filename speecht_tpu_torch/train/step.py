@@ -32,6 +32,12 @@ ranks:
   model rank and is not summed over the model axis;
 - the clip's global norm sums the shards' squares over the model group
   and counts each replicated parameter once.
+
+While a profiler records, the train steps mark their stages as spans
+(``telemetry.py``): ``step.forward`` (SpecAugment when on, the model, the
+CTC loss and the loss totals' all-reduce), ``step.backward`` (the
+gradients) and ``step.optimizer`` (the gradients' reduce, the clip, Adam
+and the update; once an update under ``--grad-accum``).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Callable
 
 import torch
 
+from speecht_tpu_torch import telemetry
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, output_length
 from speecht_tpu_torch.ops import ctc_cuda, decode
 from speecht_tpu_torch.parallel.mesh import Mesh
@@ -176,8 +183,10 @@ def _make_grad_fn(model: Wav2Letter, mesh: Mesh | None, loss_fn=None) -> Callabl
 
     def grad_fn(params, batch):
         with torch.enable_grad():
-            avg_loss, _logits = loss_fn(batch)
-            grads = torch.autograd.grad(avg_loss, list(params.values()))
+            with telemetry.span("step.forward"):
+                avg_loss, _logits = loss_fn(batch)
+            with telemetry.span("step.backward"):
+                grads = torch.autograd.grad(avg_loss, list(params.values()))
         return dict(zip(params, grads)), avg_loss.detach()
 
     return grad_fn
@@ -235,8 +244,9 @@ def _apply_grads(state: TrainState, grads, tx: ClipAdam, norm=None):
 
 
 def _reduce_and_apply(state: TrainState, grads, tx: ClipAdam, model, mesh):
-    grads = _reduce_grads(grads, mesh)
-    return _apply_grads(state, grads, tx, _grad_norm(grads, model, mesh))
+    with telemetry.span("step.optimizer"):
+        grads = _reduce_grads(grads, mesh)
+        return _apply_grads(state, grads, tx, _grad_norm(grads, model, mesh))
 
 
 def _make_update_fn(model: Wav2Letter, tx: ClipAdam, mesh: Mesh, loss_fn=None):
@@ -349,7 +359,8 @@ def make_train_step_acc(
     def augment(state, acc, batch):
         if augment_fn is None:
             return batch
-        return augment_fn(batch, key(state), acc["micro"])
+        with telemetry.span("step.forward"):
+            return augment_fn(batch, key(state), acc["micro"])
 
     if accum_steps <= 1:
         update = _make_update_fn(model, tx, mesh, loss_fn)

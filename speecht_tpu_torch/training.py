@@ -18,7 +18,10 @@ Counterpart of ``speecht_tpu/training.py`` (``Training``,
   the last three), a checkpoint and "Model saved";
 - ``--profile-steps START:STOP`` (STOP defaults to START+5), counted from
   this launch: a ``torch.profiler`` trace (CPU, and CUDA on the card) of
-  those steps, written under ``<log_dir>/profile``. The JAX loop falls
+  those steps, each from the wait for its batch on, written under
+  ``<log_dir>/profile``, with the program's spans (``telemetry.py``):
+  the step's and the loop's (``train.interval``, and ``checkpoint.save``
+  inside it) and the loader thread's. The JAX loop falls
   back to wall-clock step times on backends that cannot host its
   profiler service; ``torch.profiler`` has no such backend, so that
   branch is not ported;
@@ -50,6 +53,7 @@ import time
 
 import torch
 
+from speecht_tpu_torch import telemetry
 from speecht_tpu_torch.execution import DatasetExecutor, init_state
 from speecht_tpu_torch.ops.augment import make_augment_fn
 from speecht_tpu_torch.train import step as tstep
@@ -235,14 +239,14 @@ class Training(DatasetExecutor):
                 flags.profile_steps, flags.log_dir, flags.run_name, self.device
             )
         start_step = global_step  # --profile-steps counts from this launch
-        window_start = time.time()
+        window_start = time.perf_counter()
         stall_mark = (0, 0.0)  # (count, seconds) at the last interval
 
         loader = self.create_loader()
         try:
+            if profiler is not None:
+                profiler.before_step(0)
             for _host_batch, batch in loader:
-                if profiler is not None:
-                    profiler.before_step(global_step - start_step)
                 # from the step's in-place update until the crash-save's
                 # state points at the result, a second signal waits
                 # (_request_stop)
@@ -255,20 +259,23 @@ class Training(DatasetExecutor):
                 global_step += 1
                 self._latest_global_step = global_step
                 self._in_step = False
-                if profiler is not None:
-                    profiler.after_step(global_step - start_step)
-
                 if self._stop_requested:
                     print("\nInterrupted -- saving checkpoint before exit", flush=True)
                     return state
 
                 if global_step % spc == 0:
-                    state, window_start, stall_mark = self._end_interval(
-                        state, acc, batch, global_step, writer, ckpt, loader,
-                        previous_losses, window_start, stall_mark,
-                        param_summarizer, act_summarizer,
-                    )
+                    with telemetry.span("train.interval"):
+                        state, window_start, stall_mark = self._end_interval(
+                            state, acc, batch, global_step, writer, ckpt, loader,
+                            previous_losses, window_start, stall_mark,
+                            param_summarizer, act_summarizer,
+                        )
                     acc = tstep.init_metrics_acc(self.device)
+                if profiler is not None:
+                    # closes the trace at STOP, or opens it before the
+                    # next step's wait for its batch
+                    profiler.after_step(global_step - start_step)
+                    profiler.before_step(global_step - start_step)
         finally:
             if profiler is not None:
                 profiler.close()
@@ -290,7 +297,7 @@ class Training(DatasetExecutor):
         avg_loss = loss_sum / max(count, 1.0)
         # grad norms exist only at optimizer applies
         avg_grad_norm = grad_norm_sum / max(updates, 1.0)
-        step_time = (time.time() - window_start) / flags.steps_per_checkpoint
+        step_time = (time.perf_counter() - window_start) / flags.steps_per_checkpoint
         primary = comm.rank() == 0
         if primary:
             print(
@@ -341,17 +348,20 @@ class Training(DatasetExecutor):
             self._latest_state = state
         previous_losses.append(avg_loss)
 
-        ckpt.save(state, step=global_step)
+        with telemetry.span("checkpoint.save"):
+            ckpt.save(state, step=global_step)
         if primary:
             print("Model saved", flush=True)
-        return state, time.time(), stall_mark
+        return state, time.perf_counter(), stall_mark
 
 
 class StepProfiler:
     """A ``torch.profiler`` trace over the steps [START, STOP) of this
     launch (``--profile-steps START:STOP``, STOP = START+5 when left out),
     CPU activity and, on the card, CUDA activity. The trace is written as
-    Chrome trace JSON under ``<log_dir>/profile``."""
+    Chrome trace JSON under ``<log_dir>/profile``, with the spans the
+    program's other threads logged meanwhile (the loader's; the loop's
+    own are ``record_function``s in it already)."""
 
     def __init__(self, spec: str, log_dir: str, run_name: str, device):
         lo, _, hi = spec.partition(":")
@@ -363,6 +373,7 @@ class StepProfiler:
         )
         self.device = torch.device(device)
         self._prof = None
+        self._first_span = None
 
     def before_step(self, done: int) -> None:
         """``done``: steps this launch has taken before the next one."""
@@ -372,6 +383,7 @@ class StepProfiler:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.start()
+            self._first_span = telemetry.LOG.new_id()
 
     def after_step(self, done: int) -> None:
         if self._prof is not None and done >= self.stop:
@@ -386,5 +398,6 @@ class StepProfiler:
         self._prof.stop()
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         self._prof.export_chrome_trace(self.path)
+        telemetry.add_to_chrome_trace(self.path, self._first_span)
         self._prof = None
         print(f"Profiler trace written to {self.log_dir}/profile", flush=True)

@@ -167,13 +167,15 @@ def _event_payloads(path):
 def test_train_with_spec_augment_verbose_summaries_and_profile(corpus, capsys):
     """The three flags together on the CPU: the SpecAugment line, image
     and activation summaries in the event file at each checkpoint, and a
-    torch.profiler trace of steps 1:2 under <log_dir>/profile."""
+    torch.profiler trace of steps 1:3 under <log_dir>/profile with the
+    program's spans (the loader's put of a batch is logged with the next
+    batch, so the window takes two; the checkpoint at step 2)."""
     import json
 
     run = ["--run-name", "flags"]
     CLI(_argv(corpus, "train", *run, "--max-steps", "4",
               "--steps-per-checkpoint", "2", "--spec-augment",
-              "--verbose-summaries", "--profile-steps", "1:2")).run()
+              "--verbose-summaries", "--profile-steps", "1:3")).run()
     lines = capsys.readouterr().out.splitlines()
     assert ("SpecAugment on: 2 freq masks (width <= 15), "
             "2 time masks (width <= 0.05 x valid frames)") in lines
@@ -195,10 +197,25 @@ def test_train_with_spec_augment_verbose_summaries_and_profile(corpus, capsys):
     assert all(b"logits" in p for p in logits_images)
 
     (trace,) = os.listdir(corpus / "log" / "profile")
-    assert trace == "flags_steps_1-2.pt.trace.json"
+    assert trace == "flags_steps_1-3.pt.trace.json"
     with open(corpus / "log" / "profile" / trace) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv1d" in str(e.get("name", "")) for e in events)
+    # the program's spans: the step's and the wait for its batch on the
+    # loop's thread, the loader's stages on its own
+    threads = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("speecht."):
+            threads.setdefault(e["name"], set()).add(e["tid"])
+    loop = {"speecht.step.forward", "speecht.step.backward",
+            "speecht.step.optimizer", "speecht.loader.wait",
+            "speecht.train.interval", "speecht.checkpoint.save"}
+    loader = {"speecht.loader.produce", "speecht.loader.build",
+              "speecht.loader.h2d", "speecht.loader.put"}
+    assert loop | loader <= set(threads)
+    (loop_tid,) = set.union(*(threads[n] for n in loop))
+    (loader_tid,) = set.union(*(threads[n] for n in loader))
+    assert loop_tid != loader_tid
 
 
 def test_profile_window_defaults_to_five_steps(tmp_path):
