@@ -13,8 +13,9 @@ Counterpart of ``speecht_tpu/data/pipeline.py``:
 - :func:`batch_iterator` groups a sample generator into such batches,
   optionally by length (one process only).
 - :class:`PrefetchLoader` builds batches on a host thread. Features are
-  cast to the transfer dtype (bf16 by default) and raw audio to int16
-  (:func:`audio_to_int16`), placed in pinned memory and copied to the card
+  cast to the transfer dtype (bf16 by default) as they are copied into
+  pinned memory, raw audio goes as int16 (:func:`audio_to_int16`), and the
+  batch is copied to the card
   with ``non_blocking`` copies on a side stream, so the copy of batch N+1
   overlaps the compute of batch N. It counts its stalls (the consumer
   waiting on an empty queue) for the training loop's ``prefetch_stalls``
@@ -251,22 +252,30 @@ def to_device(
         f.name: torch.from_numpy(getattr(batch, f.name))
         for f in dataclasses.fields(batch)
     }
+    dtypes = {}
     if isinstance(batch, AudioBatch):
         if transfer_dtype == "bfloat16":
             arrays["audio"] = torch.from_numpy(audio_to_int16(batch.audio))
     else:
-        arrays["features"] = arrays["features"].to(
-            _TRANSFER_DTYPES[transfer_dtype]
-        )
+        dtypes["features"] = _TRANSFER_DTYPES[transfer_dtype]
     if device.type != "cuda":
-        return type(batch)(**{k: v.to(device) for k, v in arrays.items()})
+        return type(batch)(
+            **{k: v.to(device, dtypes.get(k)) for k, v in arrays.items()}
+        )
     with torch.cuda.stream(stream):
         return type(batch)(
             **{
-                k: v.pin_memory().to(device, non_blocking=True)
+                k: _pinned(v, dtypes.get(k)).to(device, non_blocking=True)
                 for k, v in arrays.items()
             }
         )
+
+
+def _pinned(host: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``host`` cast to ``dtype`` as it is copied into pinned memory: one
+    pass over the batch, and no pageable copy of it in the transfer dtype."""
+    out = torch.empty(host.shape, dtype=dtype or host.dtype, pin_memory=True)
+    return out.copy_(host)
 
 
 class PrefetchLoader:

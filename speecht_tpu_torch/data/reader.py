@@ -12,7 +12,9 @@ Counterpart of ``speecht_tpu/data/reader.py``:
   (``preprocess --device``): FLAC decoded on the host at its own rate,
   resample and DSP on the device in padded batches;
 - :meth:`load_samples`: the cache, shuffled, through the native npz reader
-  (``np.load`` only for files of another layout), one equal shard a data
+  (``READ_CHUNK`` files a call on ``READ_THREADS`` threads; ``np.load``
+  only for files of another layout; a looping shard that fits
+  ``KEEP_BYTES`` is read once), one equal shard a data
   rank in a multi-process run (:func:`_equal_shard`), and
   :meth:`load_raw_samples`: the FLACs themselves (``--from-audio``),
   sharded alike.
@@ -35,6 +37,25 @@ from speecht_tpu_torch import native, vocabulary
 from speecht_tpu_torch.data import features as F
 
 log = logging.getLogger(__name__)
+
+# The cache is read READ_CHUNK files at a time (a batch of B=64) on
+# READ_THREADS native threads (``native.NpzReader``), the GIL handed back
+# twice a chunk. Read a file at a time through ``npz_load_sample`` (the GIL
+# handed back four times a file, its bytes copied four times), MFCC-39
+# batches of 64 came at 84-99 ms a batch from a loader alone on the host of
+# an H100 machine whose files sit on 9p, and at 25 ms read this way.
+READ_CHUNK = 64
+READ_THREADS = 4
+
+# A training loop reads its shard pass after pass. When the shard's samples
+# fit in this many bytes, the first pass keeps them (read-only) and every
+# later pass comes from memory, as from a host's page cache at memory
+# speed; a larger shard is read anew each pass. (4 GiB: 55 hours of
+# MFCC-39 features, 17 of power-128.) On the H100 machine's host the page
+# cache does not give that speed: its 9p files read at 0.4-1.4 GB/s, so a
+# batch of MFCC-39 (17 MB) took 12-43 ms to read, beside a card that needs
+# 31.5 ms for the step.
+KEEP_BYTES = 4 << 30
 
 
 def iglob_recursive(directory: str, file_pattern: str) -> Iterator[str]:
@@ -408,10 +429,13 @@ class SpeechCorpusReader:
         Files are shuffled with ``random.Random(seed)`` (``seed=None`` draws
         a fresh order), cut to ``limit_count`` when it is non-zero, and
         utterances longer than ``max_size`` frames are skipped with a
-        warning. ``loop_infinitely`` reshuffles and starts over. Each file
-        is read by ``native.npz_load_sample`` (int32 transcripts); a file
-        of another layout (a deflated entry, another dtype) by ``np.load``.
-        A damaged file raises.
+        warning. ``loop_infinitely`` reshuffles and starts over; its passes
+        after the first come from memory when the shard's samples fit
+        ``KEEP_BYTES`` (they are then read-only). The files are read
+        ``READ_CHUNK`` at a time by a ``native.NpzReader`` of
+        ``READ_THREADS`` threads (int32 transcripts); a file of another
+        layout (a deflated entry, another dtype) by ``np.load``. A damaged
+        file raises.
 
         ``shard_index``/``shard_count`` give each data rank a disjoint,
         equal slice of the (limited) list; sharding forces seed 0 when none
@@ -431,9 +455,30 @@ class SpeechCorpusReader:
         if shard_count > 1:
             files = _equal_shard(files, shard_index, shard_count)
 
+        npz = native.NpzReader(READ_THREADS)
+
+        def read(paths):
+            for start in range(0, len(paths), READ_CHUNK):
+                chunk = paths[start: start + READ_CHUNK]
+                yield from zip(chunk, load_many(npz, chunk))
+
+        # a looping shard whose samples fit KEEP_BYTES is read once
+        kept: dict | None = {} if loop_infinitely else None
+        kept_bytes = 0
         while True:
-            for file in files:
-                features, transcript = load_sample(file)
+            if kept is not None and len(kept) == len(files):
+                pairs = ((f, kept[f]) for f in files)
+            else:
+                pairs = read(files)
+            for path, (features, transcript) in pairs:
+                if kept is not None and path not in kept:
+                    kept_bytes += features.nbytes + transcript.nbytes
+                    if kept_bytes > KEEP_BYTES:
+                        kept = None  # too large: every pass reads
+                    else:
+                        features.flags.writeable = False
+                        transcript.flags.writeable = False
+                        kept[path] = (features, transcript)
                 if not max_size or features.shape[0] <= max_size:
                     yield features, transcript
                 else:
@@ -441,6 +486,22 @@ class SpeechCorpusReader:
             if not loop_infinitely:
                 break
             rng.shuffle(files)
+
+
+def load_many(
+    npz: native.NpzReader, paths: list[str]
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Cache files -> (features, transcript) each, in order: ``npz`` reads
+    them all, ``np.load`` a file of another layout, and a damaged file
+    raises when its turn comes."""
+    for path, sample in zip(paths, npz.load(paths)):
+        if isinstance(sample, native.NpzLayoutError):
+            with np.load(path) as data:
+                yield data["audio_fragments"], data["transcript"]
+        elif isinstance(sample, Exception):
+            raise sample
+        else:
+            yield sample
 
 
 def load_sample(path: str) -> tuple[np.ndarray, np.ndarray]:

@@ -17,7 +17,9 @@ out in float32 for the CTC loss.
 The layout at the public boundary is the JAX one: ``[B, T, F]`` features
 in, ``[B, T//2, num_classes]`` logits out. Inside, activations are
 ``[B, C, T]`` for ``F.conv1d`` (cuDNN on the card; the JAX package leaves
-these convs to XLA the same way).
+these convs to XLA the same way). While a gradient is taken, a wide
+stride-1 layer (conv_8) computes its input gradient as a forward conv on
+the flipped weight (``ops/conv_grad.py``).
 
 conv_0 has a second path, opt-in as in JAX: with ``SPEECHT_PALLAS_CONV0=1``
 and a shape ``ops/conv0.py::supported`` admits, it runs through
@@ -49,11 +51,10 @@ import os
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from speecht_tpu_torch import vocabulary
-from speecht_tpu_torch.ops import conv0, conv0_cuda
+from speecht_tpu_torch.ops import conv0, conv0_cuda, conv_grad
 from speecht_tpu_torch.parallel import comm
 from speecht_tpu_torch.weights import TensorSplit
 
@@ -193,9 +194,10 @@ class Conv1d(nn.Module):
         row = self.shard is not None and self.shard[0] == 1
         if column:
             x = CopyToModel.apply(x, self.shard[3])
-        left, right = same_padding(x.shape[-1], self.width, self.stride)
-        x = F.pad(x.to(dtype), (left, right))
-        y = F.conv1d(x, self.weight.to(dtype), stride=self.stride)
+        pads = same_padding(x.shape[-1], self.width, self.stride)
+        y = conv_grad.conv1d(
+            x.to(dtype), self.weight.to(dtype), self.stride, pads
+        )
         if row:
             y = ReduceFromModel.apply(y, self.shard[3])
         y = y + self.bias.to(dtype)[:, None]

@@ -3,8 +3,8 @@ and the CTC prefix beam search.
 
 Counterpart of ``speecht_tpu/native/__init__.py`` less its edit distance:
 :func:`flac_decode`, :func:`resample`, :func:`load_audio`,
-:func:`npz_load_sample`, :func:`lm_is_binary`, :func:`lm_write_binary`,
-:class:`NGramLM`, :func:`ctc_beam_search`, :func:`ctc_beam_search_cont`
+:func:`npz_load_sample`, :class:`NpzReader`, :func:`lm_is_binary`,
+:func:`lm_write_binary`, :class:`NGramLM`, :func:`ctc_beam_search`, :func:`ctc_beam_search_cont`
 (the continuation search of streaming partials) and :func:`kenlm_dump`;
 and :func:`crc32c`, which the JAX package leaves to tensorflow (the TF
 checkpoint reader's check of each tensor, ``compat.py``).
@@ -37,6 +37,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import weakref
 
 import numpy as np
 
@@ -144,6 +145,20 @@ _SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "stt_npz_reader_new": ([ctypes.c_int32], _P),
+    "stt_npz_reader_free": ([_P], None),
+    "stt_npz_reader_read": (
+        [
+            _P,
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),  # codes [n]
+            ctypes.POINTER(ctypes.c_int64),  # feature shapes [n, 2]
+            ctypes.POINTER(ctypes.c_int64),  # transcript lengths [n]
+        ],
+        None,
+    ),
+    "stt_npz_reader_fill": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)], None),
     "stt_kenlm_dump_open": ([ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int32], _P),
     "stt_kenlm_dump_close": ([_P], None),
     "stt_kenlm_dump_order": ([_P], ctypes.c_int32),
@@ -536,3 +551,53 @@ def npz_load_sample(path: str) -> tuple[np.ndarray, np.ndarray]:
         _take(lib, feats, (shape[0], shape[1])),
         _take(lib, transcript, (length.value,)),
     )
+
+
+class NpzReader:
+    """Reads cache files many at a time, each into arrays of its own.
+
+    ``load(paths)`` gives, for each path in order, (features float32 [T, F],
+    transcript int32) or the error :func:`npz_load_sample` raises for it.
+    The library's ``threads`` threads read and parse the files, into
+    buffers the reader keeps from call to call, and then convert them into
+    numpy arrays allocated here from the shapes read; the GIL is released
+    once for each of the two phases. So a loader thread beside a training
+    loop reads a batch of files in parallel and hands the loop's thread the
+    GIL back twice a batch, not several times a file. One thread at a time
+    uses a reader.
+    """
+
+    def __init__(self, threads: int):
+        lib = load()
+        self._lib = lib
+        self._handle = lib.stt_npz_reader_new(threads)
+        self._free = weakref.finalize(self, lib.stt_npz_reader_free, self._handle)
+
+    def load(self, paths: list[str]) -> list:
+        lib, n = self._lib, len(paths)
+        codes = (ctypes.c_int32 * n)()
+        shapes = (ctypes.c_int64 * (2 * n))()
+        lengths = (ctypes.c_int64 * n)()
+        lib.stt_npz_reader_read(
+            self._handle, (ctypes.c_char_p * n)(*(p.encode() for p in paths)),
+            n, codes, shapes, lengths,
+        )
+        feature_ptrs, transcript_ptrs = (_P * n)(), (_P * n)()
+        out = []
+        for i, (path, rc) in enumerate(zip(paths, codes)):
+            if rc == 1:
+                out.append(NpzLayoutError(
+                    f"{path}: not the layout the native reader reads"))
+            elif rc != 0:
+                out.append(ValueError(f"npz load failed for {path} (code {rc})"))
+            else:
+                feats = np.empty((shapes[2 * i], shapes[2 * i + 1]), np.float32)
+                transcript = np.empty(lengths[i], np.int32)
+                feature_ptrs[i] = feats.ctypes.data
+                transcript_ptrs[i] = transcript.ctypes.data
+                out.append((feats, transcript))
+        lib.stt_npz_reader_fill(self._handle, feature_ptrs, transcript_ptrs)
+        return out
+
+    def close(self) -> None:
+        self._free()

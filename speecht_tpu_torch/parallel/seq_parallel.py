@@ -8,6 +8,9 @@ neighbour and the first ``W//2`` of its right one (:class:`HaloExchange`);
 the edge ranks receive zeros, which is SAME padding. The conv then runs
 with VALID padding (``F.conv1d``, as JAX's SP path uses ``lax.conv`` and
 not the conv0 kernel), so the stride-2 first layer needs an even slab.
+The wide layer's input gradient, halo frames included, is a forward conv
+on the flipped weight while training, as on one device
+(``ops/conv_grad.py``).
 
 The loss gathers the logits over time (:class:`GatherTime`) and every rank
 of the group runs the port's CTC (the alpha and beta kernels) on the whole
@@ -21,8 +24,8 @@ over the sequence group and the data group (``train/step.py``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from speecht_tpu_torch.ops import conv_grad
 from speecht_tpu_torch.parallel import comm
 from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.parallel.mesh import Mesh
@@ -88,7 +91,7 @@ def _sp_conv(x, layer, mesh, dtype):
     """One SAME conv layer over a time-sharded activation ``[B, C, T]``."""
     if layer.width > 1:
         x = HaloExchange.apply(x, (layer.width - 1) // 2, layer.width // 2, mesh)
-    y = F.conv1d(x.to(dtype), layer.weight.to(dtype), stride=layer.stride)
+    y = conv_grad.conv1d(x.to(dtype), layer.weight.to(dtype), layer.stride)
     y = y + layer.bias.to(dtype)[:, None]
     if layer.relu:
         y = torch.relu(y)

@@ -15,7 +15,8 @@ counts the calls and fails if one was never made):
 - FLAC decoding of the files given with ``--flac`` (the JAX tool reads a
   LibriSpeech fixture the repository does not hold), and ``load_audio``;
 - resampling up and down, on the polyphase path and on the direct sum;
-- the npz cache reader, on its layout and on ones it refuses;
+- the npz cache reader, on its layout and on ones it refuses, a file at a
+  time and many in one call;
 - ARPA and KenLM-binary LM loading, scoring, ``has_word``, the binary
   writer and the table dump, on the tool's own ARPA text;
 - the prefix beam with and without the LM, and the continuation beam;
@@ -217,6 +218,14 @@ def drive(lib_path: str, flacs: list[str], work: str) -> None:
             native.npz_load_sample(path)
         except native.NpzLayoutError:
             pass
+    # many files at a time, on threads: read, refused and missing ones mixed
+    many = [sample, os.path.join(work, "compressed.npz"), sample,
+            os.path.join(work, "fortran.npz"), os.path.join(work, "missing.npz")]
+    npz = native.NpzReader(3)
+    got = npz.load(many)
+    assert [type(g).__name__ for g in got] == [
+        "tuple", "NpzLayoutError", "tuple", "tuple", "ValueError"]
+    assert (got[2][0] == feats).all() and npz.load([]) == []
     print("npz ok")
 
     # LMs: ARPA, the binary written from it, the table dump
@@ -273,6 +282,8 @@ def drive(lib_path: str, flacs: list[str], work: str) -> None:
     fuzz("kenlm.binary", [binary], parse_binary)
     fuzz("flac", flacs, native.flac_decode)
     fuzz("npz", [sample], native.npz_load_sample)
+    fuzz("npz_many", [sample], lambda p: npz.load([sample, p, p]))
+    npz.close()
 
     del lm, blm
     never = sorted(name for name, n in calls.items() if not n)

@@ -89,8 +89,11 @@ class ClipAdam:
         nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
         count = state.count + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(b2, device=c.device), c)
+        # a Python scalar base: the same float32 powers as a device tensor
+        # of b1, and no blocking host-to-device copy, so the host queues
+        # the next step while the card runs this one
+        bc1 = 1 - torch.pow(b1, c)
+        bc2 = 1 - torch.pow(b2, c)
         updates = {
             k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps) for k in grads
         }

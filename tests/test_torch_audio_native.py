@@ -158,16 +158,139 @@ def test_npz_reader_bit_equal_on_either_order(tmp_path, order):
 
 def test_reader_reads_the_cache_natively(jax_cache, monkeypatch):
     calls = []
-    read = native.npz_load_sample
+    read = native.NpzReader.load
     monkeypatch.setattr(
-        native, "npz_load_sample", lambda p: calls.append(p) or read(p)
+        native.NpzReader, "load", lambda r, ps: calls.append(ps) or read(r, ps)
     )
     samples = list(
         reader.SpeechCorpusReader(str(jax_cache.parent.parent)).load_samples(
             "test", feature_type="power", seed=0
         )
     )
-    assert len(samples) == len(calls) == 4
+    # the four files fit one chunk: one native call reads them
+    assert len(calls) == 1 and len(samples) == len(calls[0]) == 4
+
+
+def _write_layout(path: str, layout: str, rng) -> None:
+    feats = rng.randn(int(rng.randint(1, 40)), 7).astype(np.float32)
+    transcript = np.arange(int(rng.randint(0, 6)))
+    if layout == "fortran":
+        feats = np.asfortranarray(feats)
+    if layout == "float64":
+        feats = feats.astype(np.float64)
+    if layout == "deflated":
+        np.savez_compressed(path, audio_fragments=feats, transcript=transcript)
+    elif layout == "no_transcript":
+        np.savez(path, audio_fragments=feats)
+    else:
+        np.savez(path, audio_fragments=feats, transcript=transcript)
+    if layout == "damaged":
+        data = open(path, "rb").read()
+        open(path, "wb").write(data[: len(data) // 2])
+
+
+@pytest.mark.parametrize("seed,threads", [(0, 1), (1, 3), (2, 8)])
+def test_npz_reader_matches_one_file_at_a_time(tmp_path, seed, threads):
+    """One read of a mixed chunk gives, file for file, what
+    ``npz_load_sample`` gives: the arrays, or the same error; and again
+    with the reader's buffers reused for a shorter chunk."""
+    rng = np.random.RandomState(seed)
+    layouts = ["plain", "fortran", "float64", "deflated", "no_transcript",
+               "damaged", "plain", "plain"]
+    rng.shuffle(layouts)
+    paths = []
+    for i, layout in enumerate(layouts):
+        paths.append(str(tmp_path / f"u{i}.npz"))
+        _write_layout(paths[-1], layout, rng)
+    paths.append(str(tmp_path / "missing.npz"))
+    npz = native.NpzReader(threads)
+    for chunk in (paths, paths[::-1][:5]):
+        got = npz.load(chunk)
+        assert len(got) == len(chunk)
+        for path, sample in zip(chunk, got):
+            try:
+                want = native.npz_load_sample(path)
+            except ValueError as e:
+                assert type(sample) is type(e) and str(sample) == str(e)
+                continue
+            feats, transcript = sample
+            np.testing.assert_array_equal(feats, want[0])
+            np.testing.assert_array_equal(transcript, want[1])
+            assert feats.dtype == np.float32 and transcript.dtype == np.int32
+            # each sample owns its memory: none keeps the chunk's alive
+            assert feats.flags.owndata and transcript.flags.owndata
+    assert npz.load([]) == []
+    npz.close()
+
+
+def test_reader_chunks_keep_order_and_raise_in_turn(tmp_path):
+    """Across chunks the reader yields the shuffled order, takes ``np.load``
+    for another layout, and raises for a damaged file after the samples
+    before it."""
+    directory = tmp_path / "preprocessed" / "train"
+    directory.mkdir(parents=True)
+    rng = np.random.RandomState(3)
+    n = reader.READ_CHUNK + 5
+    for i in range(n):
+        layout = "deflated" if i == 2 else "plain"
+        _write_layout(str(directory / f"u{i:03d}.npz"), layout, rng)
+    corpus = reader.SpeechCorpusReader(str(tmp_path))
+    files = sorted(reader.iglob_recursive(str(directory), "*.npz"))
+    order = list(files)
+    import random
+    random.Random(7).shuffle(order)
+    got = list(corpus.load_samples("train", feature_type="mfcc", seed=7))
+    assert len(got) == n
+    for path, (feats, transcript) in zip(order, got):
+        with np.load(path) as data:
+            np.testing.assert_array_equal(feats, data["audio_fragments"])
+            np.testing.assert_array_equal(transcript, data["transcript"])
+    _write_layout(order[reader.READ_CHUNK + 1], "damaged", rng)
+    taken = []
+    with pytest.raises(ValueError, match="npz load failed"):
+        for sample in corpus.load_samples("train", feature_type="mfcc", seed=7):
+            taken.append(sample)
+    assert len(taken) == reader.READ_CHUNK + 1
+
+
+@pytest.mark.parametrize("fits", [True, False])
+def test_looping_reader_keeps_a_shard_that_fits(tmp_path, monkeypatch, fits):
+    """A looping shard that fits ``KEEP_BYTES`` is read once: later passes
+    give the same samples, read-only, in each pass's shuffled order, with
+    no read; a larger one is read every pass."""
+    directory = tmp_path / "preprocessed" / "train"
+    directory.mkdir(parents=True)
+    rng = np.random.RandomState(4)
+    n = reader.READ_CHUNK + 3
+    for i in range(n):
+        _write_layout(str(directory / f"u{i:03d}.npz"), "plain", rng)
+    if not fits:
+        monkeypatch.setattr(reader, "KEEP_BYTES", 4 * 1024)
+    reads = []
+    load = native.NpzReader.load
+    monkeypatch.setattr(native.NpzReader, "load",
+                        lambda r, ps: reads.append(len(ps)) or load(r, ps))
+    looping = reader.SpeechCorpusReader(str(tmp_path)).load_samples(
+        "train", feature_type="mfcc", seed=5, loop_infinitely=True)
+    passes = [[next(looping) for _ in range(n)] for _ in range(3)]
+    looping_reads = sum(reads)
+    once = reader.SpeechCorpusReader(str(tmp_path)).load_samples(
+        "train", feature_type="mfcc", seed=5)
+    assert [(f.tobytes(), t.tobytes()) for f, t in passes[0]] == [
+        (f.tobytes(), t.tobytes()) for f, t in once]
+    by_content = {f.tobytes(): t.tobytes() for f, t in passes[0]}
+    for later in passes[1:]:
+        assert {f.tobytes(): t.tobytes() for f, t in later} == by_content
+    assert [f.tobytes() for f, _ in passes[1]] != [f.tobytes() for f, _ in passes[0]]
+    if fits:
+        assert looping_reads == n  # the first pass alone
+        assert all(f is g for (f, _), (g, _) in zip(
+            sorted(passes[0], key=lambda s: s[0].tobytes()),
+            sorted(passes[2], key=lambda s: s[0].tobytes())))
+        assert not passes[2][0][0].flags.writeable
+    else:
+        assert looping_reads >= 2 * n + 1  # each pass reads
+        assert passes[2][0][0].flags.writeable
 
 
 @pytest.mark.parametrize(
@@ -230,7 +353,7 @@ def test_library_that_cannot_build_raises_through_the_reader(
 def test_audio_symbols_exported():
     lib = native.load()
     for name in ("stt_flac_decode_file", "stt_resample", "stt_npz_load_sample",
-                 "stt_free"):
+                 "stt_npz_reader_read", "stt_npz_reader_fill", "stt_free"):
         assert hasattr(lib, name)
     for name in ("st_flac_decode_file", "st_resample", "st_npz_load_sample",
                  "st_levenshtein_i32"):

@@ -172,6 +172,15 @@ def test_two_rank_steps_match_one_process(runs, name):
     assert_same(results[name], *port_steps(state_path, batches))
 
 
+@pytest.mark.parametrize("name", ["dp", "tp", "dp_accum"])
+def test_two_rank_steps_take_forward_input_grad(runs, name):
+    """The width-32 layer's input gradient runs as a forward conv once a
+    step on every grid; on the tensor-parallel grid each rank takes its
+    column shard's part, which ``CopyToModel``'s backward sums."""
+    _jm, _p, _tx, batches, results, _state = runs
+    assert int(results[name]["metric/input_grads"]) == len(batches)
+
+
 def test_grad_accum_under_dp_matches_jax_and_one_process(runs):
     jmodel, params, jtx, batches, results, state_path = runs
     result = results["dp_accum"]

@@ -13,7 +13,8 @@ Tolerances, float32 on both sides: logits 1e-5 (JAX's own SP test);
 loss rtol 1e-5; gradients rtol 1e-3 / atol 1e-4 (JAX's SP-against-dense
 gradient test: the halo sums run in another order); after the step,
 parameters rtol 1e-5 / atol 1e-6 and the grad norm rtol 1e-4, as
-tests/test_torch_train.py.
+tests/test_torch_train.py. The summed gradients also match the port's
+one-device gradients, at the same tolerance as JAX's.
 """
 
 import flax.linen as nn
@@ -21,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from speecht_tpu.data.pipeline import Batch as JBatch
 from speecht_tpu.models.wav2letter import Wav2Letter as JWav2Letter
@@ -29,7 +31,11 @@ from speecht_tpu.parallel import mesh as jmesh
 from speecht_tpu.parallel import seq_parallel as jsp
 from speecht_tpu.train.state import create_train_state as jcreate
 from speecht_tpu.train.state import make_optimizer as jmake_optimizer
+from speecht_tpu_torch.data.pipeline import Batch, to_device
+from speecht_tpu_torch.models.wav2letter import Wav2Letter
+from speecht_tpu_torch.ops import conv_grad
 from speecht_tpu_torch.parallel import seq_parallel as sp
+from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.weights import params_from_jax
 
 import torch_parallel_workers as workers
@@ -127,3 +133,23 @@ def test_sp_data_axis_matches_jax():
     for dp, n in ((1, 2), (2, 2), (2, 4)):
         want = jsp.sp_data_axis(jmesh.make_mesh(data_parallel=dp, model_parallel=n))
         assert sp.sp_data_axis(Mesh(dp=dp, mp=n, seq_parallel=True)) == want
+
+
+def test_sp_gradients_match_one_device_through_forward_input_grad(runs):
+    """The width-32 layer's input gradient, halo frames included, runs as a
+    forward conv on each rank (once a rank for the loss's gradients), and
+    the gradients summed over the sequence group match one device's."""
+    _model, params, _tx, batch, got = runs
+    model = Wav2Letter(workers.tiny_config())
+    model.load_state_dict(params_from_jax(jax.device_get(params)))
+    tb = to_device(Batch(batch.features, batch.seq_lengths, batch.labels,
+                         batch.label_lengths), torch.device("cpu"), "float32")
+    before = conv_grad.input_grads
+    loss, _logits = tstep.make_loss_fn(model)(tb)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert conv_grad.input_grads - before == 1
+    assert int(got["input_grads"]) == 1
+    for name, want in zip(params, grads):
+        np.testing.assert_allclose(got[f"grad/{name}"], want.numpy(), rtol=1e-3,
+                                   atol=1e-4, err_msg=name)

@@ -141,6 +141,7 @@ def train_steps(rank, world, work, state_path, batch_paths, lr):
     the saved batches from the saved JAX state; rank 0 saves the full
     parameters and the losses and grad norms."""
     from speecht_tpu_torch.models.wav2letter import Wav2Letter
+    from speecht_tpu_torch.ops import conv_grad
     from speecht_tpu_torch.parallel import mesh as pmesh
     from speecht_tpu_torch.train import step as tstep
 
@@ -155,6 +156,7 @@ def train_steps(rank, world, work, state_path, batch_paths, lr):
         step = tstep.make_train_step_acc(model, tx, accum_steps=accum, mesh=mesh)
         gacc = tstep.init_grad_accum(state.params) if accum > 1 else None
         losses, norms, updates = [], [], 0.0
+        input_grads = conv_grad.input_grads
         for batch in batches:
             per = batch.features.shape[0] // dp
             local = rows(batch, mesh.data_index * per, (mesh.data_index + 1) * per)
@@ -167,7 +169,8 @@ def train_steps(rank, world, work, state_path, batch_paths, lr):
             norms.append(acc["grad_norm_sum"].item())
             updates += acc["updates"].item()
         metrics = {"loss": np.array(losses), "grad_norm": np.array(norms),
-                   "updates": np.array(updates)}
+                   "updates": np.array(updates),
+                   "input_grads": np.array(conv_grad.input_grads - input_grads)}
         full = model.split.unshard(state.params)
         if rank == 0:
             np.savez(os.path.join(work, f"{name}.npz"),
@@ -180,6 +183,7 @@ def seq_parallel(rank, world, work, state_path, batch_path, lr):
     and its gradients (summed over the sequence group) and one train step;
     rank 0 saves them."""
     from speecht_tpu_torch.models.wav2letter import Wav2Letter
+    from speecht_tpu_torch.ops import conv_grad
     from speecht_tpu_torch.parallel import mesh as pmesh
     from speecht_tpu_torch.parallel import seq_parallel as sp
     from speecht_tpu_torch.train import step as tstep
@@ -194,7 +198,9 @@ def seq_parallel(rank, world, work, state_path, batch_path, lr):
         out["logits"] = sp.make_sp_forward(model, mesh)(batch.features).numpy()
     loss, _logits = sp.make_sp_loss_fn(model, mesh)(batch)
     names = list(state.params)
+    input_grads = conv_grad.input_grads
     grads = dict(zip(names, torch.autograd.grad(loss, [state.params[n] for n in names])))
+    out["input_grads"] = np.array(conv_grad.input_grads - input_grads)
     grads = tstep._reduce_grads(grads, mesh)
     out["loss"] = loss.detach().numpy()
     out.update({f"grad/{k}": v.numpy() for k, v in grads.items()})
