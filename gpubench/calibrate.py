@@ -31,7 +31,7 @@ import time
 
 from gpubench import check, manifest
 from gpubench.kinds import train
-from gpubench.reference import wav2letter as ref
+from gpubench.reference import common
 
 
 def half_batch(rows: int) -> list:
@@ -46,7 +46,7 @@ def readings(spec: train.Spec) -> dict:
         spec, program.data, program.features, program.weights, program.check_rows)
     control, _ = train.reference_readings(
         spec, program.data, program.features, program.weights, program.check_rows,
-        quantize=ref.fp8_quantize)
+        quantize=common.fp8_quantize)
     fault, _ = train.reference_readings(
         spec, program.data, program.features, program.weights, program.check_rows,
         rows=half_batch)
@@ -65,6 +65,7 @@ def main(argv=None, device=None, package_dir: str = manifest.HERE) -> int:
     bench = manifest.Manifest.load(package_dir)
     cell = bench.workload(args.workload)
     config, traffic = bench.config(cell), bench.traffic(cell)
+    manifest.architecture(config, cell["config"])
     if device is None:
         if not torch.cuda.is_available():
             print("error: no CUDA device", file=sys.stderr)

@@ -46,8 +46,8 @@ def _worst_leaf(got: dict, want: dict, leaves) -> float:
 
 def numbers(program: dict, reference: dict) -> dict:
     """The numbers from two readings (``losses``, ``grad_norms``,
-    ``change_norms``, as :func:`reference.wav2letter.train_steps` gives
-    them)."""
+    ``change_norms``, as an architecture's ``train_steps`` gives them:
+    ``reference/__init__.py``)."""
     if len(program["losses"]) != len(reference["losses"]):
         raise ValueError("the two sides ran different numbers of steps")
     gaps = [abs(p - r) / max(abs(r), 1e-30)

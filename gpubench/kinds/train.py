@@ -40,8 +40,8 @@ import warnings
 import numpy as np
 import torch
 
-from gpubench import check, corpus, trace
-from gpubench.reference import wav2letter as ref
+from gpubench import check, corpus, manifest, trace
+from gpubench.reference import common
 
 
 @dataclasses.dataclass
@@ -88,8 +88,9 @@ class Result:
 
 
 def program_flags(config: dict, traffic: dict, data_dir: str, device: torch.device):
-    """The port's ``train`` flags: its own parser, its defaults, and the
-    configuration's and traffic's settings."""
+    """The port's ``train`` flags: its own parser, its defaults, the
+    configuration's and traffic's settings, and the architecture's own
+    (``program_flags`` of its reference module)."""
     from speecht_tpu_torch.cli import CLI
 
     if traffic.get("spec_augment") or traffic.get("grad_accum", 1) != 1:
@@ -101,9 +102,6 @@ def program_flags(config: dict, traffic: dict, data_dir: str, device: torch.devi
         "--power" if config["feature_type"] == "power" else "--mfcc",
         "--batch-size", str(traffic["batch_size"]),
         "--bucket-step", str(traffic["bucket_step"]),
-        "--base-channels", str(config["base_channels"]),
-        "--wide-channels", str(config["wide_channels"]),
-        "--num-body-layers", str(config["num_body_layers"]),
         "--compute-dtype", config["compute_dtype"],
         "--transfer-dtype", config["transfer_dtype"],
         "--learning-rate", repr(config["learning_rate"]),
@@ -112,6 +110,7 @@ def program_flags(config: dict, traffic: dict, data_dir: str, device: torch.devi
     ]
     if traffic["group_by_length"]:
         argv.append("--group-by-length")
+    argv += manifest.architecture(config).program_flags(config)
     return CLI(argv).parsed
 
 
@@ -231,6 +230,7 @@ class Program:
         from speecht_tpu_torch.train import step as tstep
 
         device, traffic, config = spec.device, spec.traffic, spec.config
+        ref = manifest.architecture(config)
         self.spec, self.tstep = spec, tstep
         self.times = {}
 
@@ -305,9 +305,10 @@ class Program:
 
 
 def reference_readings(spec: Spec, data: corpus.Corpus, features: np.ndarray, weights: dict,
-                       check_rows: list, quantize=ref.identity, rows=None) -> tuple:
+                       check_rows: list, quantize=common.identity, rows=None) -> tuple:
     """The reference's steps on the checked batches' utterances, padded and
     batched anew; returns (readings, notes)."""
+    ref = manifest.architecture(spec.config)
     notes, batches = [], []
     for utterances, frames in check_rows:
         feats, lengths, labels = corpus.pad_batch(data, features, utterances,
@@ -317,7 +318,7 @@ def reference_readings(spec: Spec, data: corpus.Corpus, features: np.ndarray, we
                          f"frames, the program to {frames}")
         batches.append((torch.from_numpy(feats).to(spec.device),
                         torch.from_numpy(lengths).to(spec.device), labels))
-    with ref.float32_exact():
+    with common.float32_exact():
         return ref.train_steps(weights, batches, spec.config, quantize, rows), notes
 
 

@@ -9,7 +9,10 @@ own that the harness finds by its name:
 - ``limits/<workload>.json``, the limits of the comparison that decides
   ``correct`` (``check.py``);
 - ``kinds/<kind>.py``, named by the traffic file's ``kind``, with
-  ``run(spec)``: the set-up, the window and the check of a kind of cell.
+  ``run(spec)``: the set-up, the window and the check of a kind of cell;
+- ``reference/<model>.py``, named by the configuration file's ``model``:
+  the architecture's plain reference, its flags and its counts
+  (``reference/__init__.py``).
 """
 
 from __future__ import annotations
@@ -84,3 +87,29 @@ def kind(name: str):
     if not NAME.match(name) or "." in name:
         raise ValueError(f"bad kind {name!r}")
     return importlib.import_module(f"gpubench.kinds.{name}")
+
+
+# what every architecture's module provides (``reference/__init__.py``);
+# ``conv_flops_padded`` is optional
+ARCHITECTURE = ("program_flags", "make_weights", "train_steps", "logit_lengths",
+                "logit_frames", "train_flops_valid")
+
+
+def architecture(config: dict, name: str = "the configuration"):
+    """``reference/<config["model"]>.py``; a ValueError that names the
+    configuration (``name``, as ``BENCHMARK.json`` does) where the model
+    is no such module or the module lacks part of the interface."""
+    model = config.get("model")
+    if not isinstance(model, str) or not NAME.match(model) or "." in model:
+        raise ValueError(f"{name}: bad model {model!r}")
+    module_name = f"gpubench.reference.{model}"
+    try:
+        module = importlib.import_module(module_name)
+    except ModuleNotFoundError as e:
+        if e.name != module_name:
+            raise
+        raise ValueError(f"{name}: model {model!r} has no reference/{model}.py") from None
+    missing = [f for f in ARCHITECTURE if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"{name}: reference/{model}.py lacks {', '.join(missing)}")
+    return module

@@ -1,4 +1,6 @@
-"""The plain reference of one Wav2Letter training step, in float32.
+"""The plain reference of one Wav2Letter training step, in float32, and
+the architecture's counts for the yardstick (the interface is in
+``reference/__init__.py``).
 
 A frozen, independent writing of what the benchmark's training cells
 compute: the Wav2Letter forward (Collobert et al. 2016: a stride-2 conv
@@ -11,7 +13,7 @@ comes from the configuration file.
 
 Departures from the program, each on purpose:
 
-- Everything is float32, and TF32 is off (:func:`float32_exact`). The
+- Everything is float32, and TF32 is off (``common.float32_exact``). The
   program runs its convolutions, bias adds and ReLUs in bfloat16 and
   sends the features as bfloat16; the gap between the two is what the
   benchmark's limits are set on. With TF32 on, cuDNN would round each
@@ -27,28 +29,41 @@ Departures from the program, each on purpose:
   rounds to its compute precision: the layer's input, kernel and bias,
   its output and the sum after the bias, and each gradient flowing back
   into a layer. The reference itself passes none. The benchmark's control
-  passes :func:`fp8_quantize`, the step below bfloat16.
+  passes ``common.fp8_quantize``, the step below bfloat16.
+
+The optimizer and the control live in ``common.py``, shared with every
+architecture.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpubench.reference.common import Adam, identity
 
-@contextlib.contextmanager
-def float32_exact():
-    """TF32 off for matmuls and cuDNN convolutions inside the block."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+def program_flags(config: dict) -> list[str]:
+    """The port's ``train`` flags that give the model its shape."""
+    return ["--base-channels", str(config["base_channels"]),
+            "--wide-channels", str(config["wide_channels"]),
+            "--num-body-layers", str(config["num_body_layers"])]
+
+
+def logit_lengths(config: dict, seq_lengths):
+    """The logit frames of rows of ``seq_lengths`` input frames (an array
+    or a tensor): the stride-2 first layer's ``n // 2``, as the port's
+    ``output_length`` gives them to the CTC loss."""
+    return seq_lengths // 2
+
+
+def logit_frames(config: dict, frames: int) -> int:
+    """The logits' padded length at ``frames`` padded input frames: SAME
+    padding at stride 2."""
+    return -(-frames // 2)
 
 
 def layer_specs(config: dict) -> list[tuple[int, int, int, int, bool]]:
@@ -82,40 +97,44 @@ def make_weights(config: dict, seed: int, device) -> dict[str, torch.Tensor]:
     return params
 
 
+def conv_macs_per_output_frame(config: dict) -> list[int]:
+    """Multiply-adds of each layer for one output frame of one row."""
+    return [width * cin * cout for width, _s, cin, cout, _r in layer_specs(config)]
+
+
+def train_flops_valid(config: dict, seq_lengths) -> float:
+    """Operations one train step needs for these rows' valid frames: the
+    forward, the weight gradients and the input gradients of every layer
+    but the first (the features need none). A row of ``n`` input frames
+    has ``n // 2`` valid frames after the stride-2 first layer, and every
+    later layer keeps that count."""
+    macs = conv_macs_per_output_frame(config)
+    per_frame = 2.0 * (3 * sum(macs) - macs[0])
+    frames = int(logit_lengths(config, np.asarray(seq_lengths, dtype=np.int64)).sum())
+    return per_frame * frames
+
+
+def conv_flops_padded(config: dict, batch: int, frames: int) -> tuple[float, float]:
+    """(forward, backward) operations of the convolutions at the padded
+    shape as run: ``batch`` rows of ``frames`` input frames, every output
+    frame of every layer computed, SAME padding. The backward is the weight
+    gradient of every layer and the input gradient of every layer but the
+    first."""
+    fwd = bwd = 0.0
+    t = frames
+    for i, (width, stride, cin, cout, _relu) in enumerate(layer_specs(config)):
+        t = -(-t // stride)
+        f = 2.0 * batch * t * width * cin * cout
+        fwd += f
+        bwd += f if i == 0 else 2 * f
+    return fwd, bwd
+
+
 def same_padding(length: int, width: int, stride: int) -> tuple[int, int]:
     """TensorFlow SAME: (left, right), the odd pad on the right."""
     out = -(-length // stride)
     total = max((out - 1) * stride + width - length, 0)
     return total // 2, total - total // 2
-
-
-def identity(x: torch.Tensor) -> torch.Tensor:
-    return x
-
-
-class _RoundBoth(torch.autograd.Function):
-    """Rounds the value forward and the gradient backward with one rule."""
-
-    @staticmethod
-    def forward(ctx, x, rule):
-        ctx.rule = rule
-        return rule(x.detach())
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.rule(g), None
-
-
-def _fp8_round(x: torch.Tensor) -> torch.Tensor:
-    amax = x.abs().amax()
-    scale = torch.where(amax > 0, amax / 448.0, torch.ones_like(amax))
-    return (x / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
-
-
-def fp8_quantize(x: torch.Tensor) -> torch.Tensor:
-    """float8 e4m3 with one scale a tensor (its largest magnitude at 448,
-    e4m3's largest), on the value and on the gradient."""
-    return _RoundBoth.apply(x, _fp8_round)
 
 
 def forward(params: dict, features: torch.Tensor, config: dict,
@@ -135,49 +154,18 @@ def forward(params: dict, features: torch.Tensor, config: dict,
 def loss(params: dict, features: torch.Tensor, seq_lengths: torch.Tensor,
          labels: list, config: dict, quantize=identity) -> torch.Tensor:
     """The mean CTC loss of the rows whose loss is finite. ``labels`` are
-    the rows' unpadded transcripts; a row of ``n`` frames has ``n // 2``
-    logit frames."""
+    the rows' unpadded transcripts; a row's logit frames are
+    :func:`logit_lengths`."""
     logits = forward(params, features, config, quantize)
     log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
     device = features.device
     targets = torch.cat([torch.as_tensor(lab, dtype=torch.long) for lab in labels]).to(device)
     target_lengths = torch.tensor([len(lab) for lab in labels], dtype=torch.long, device=device)
-    per_row = F.ctc_loss(log_probs, targets, (seq_lengths // 2).long(), target_lengths,
-                         blank=config["blank_id"], reduction="none", zero_infinity=False)
+    per_row = F.ctc_loss(log_probs, targets, logit_lengths(config, seq_lengths).long(),
+                         target_lengths, blank=config["blank_id"], reduction="none",
+                         zero_infinity=False)
     finite = torch.isfinite(per_row)
     return torch.where(finite, per_row, 0.0).sum() / finite.sum().clamp(min=1)
-
-
-class Adam:
-    """clip-by-global-norm -> Adam -> ``-lr`` times the update."""
-
-    def __init__(self, params: dict, config: dict):
-        self.cfg = config
-        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.count = 0
-
-    def clip(self, grads: dict) -> dict:
-        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).float()
-        cap = self.cfg["max_gradient_norm"]
-        if float(norm) < cap:
-            return dict(grads)
-        return {k: g / norm * cap for k, g in grads.items()}
-
-    def step(self, params: dict, grads: dict) -> dict:
-        """Updates ``params`` in place; returns the clipped gradients."""
-        b1, b2 = self.cfg["adam_b1"], self.cfg["adam_b2"]
-        eps, lr = self.cfg["adam_epsilon"], self.cfg["learning_rate"]
-        clipped = self.clip(grads)
-        self.count += 1
-        c1, c2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        with torch.no_grad():
-            for k, g in clipped.items():
-                self.mu[k] = (1 - b1) * g + b1 * self.mu[k]
-                self.nu[k] = (1 - b2) * g * g + b2 * self.nu[k]
-                update = (self.mu[k] / c1) / (torch.sqrt(self.nu[k] / c2) + eps)
-                params[k].sub_(lr * update)
-        return clipped
 
 
 def train_steps(params: dict, batches: list, config: dict, quantize=identity,

@@ -115,6 +115,7 @@ def main(argv=None, device=None, package_dir: str = manifest.HERE) -> int:
         device = "cuda:0"
     device = torch.device(device)
     config, traffic = bench.config(cell), bench.traffic(cell)
+    manifest.architecture(config, cell["config"])
     kind = manifest.kind(traffic["kind"])
     work_dir = tempfile.mkdtemp(prefix="gpubench-")
     try:

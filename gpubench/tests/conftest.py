@@ -55,19 +55,20 @@ def copy_harness(dest: str) -> str:
     return package
 
 
-def add_tiny_cell(dest: str, package: str, name: str = "tiny_cell") -> None:
+def add_tiny_cell(dest: str, package: str, name: str = "tiny_cell", config: str = "tiny_w2l",
+                  config_data: dict = TINY_CONFIG) -> None:
     """A throwaway configuration, traffic mix and cell, added as files and
     as entries of the copy's ``BENCHMARK.json``."""
-    write_json(os.path.join(package, "configs", "tiny_w2l.json"), TINY_CONFIG)
+    write_json(os.path.join(package, "configs", f"{config}.json"), config_data)
     write_json(os.path.join(package, "traffic", "tiny_mix.json"), TINY_TRAFFIC)
     write_json(os.path.join(package, "limits", f"{name}.json"), {"limits": TINY_LIMITS})
     path = os.path.join(dest, "BENCHMARK.json")
     with open(path) as f:
         bench = json.load(f)
-    bench["configs"].append({"name": "tiny_w2l", "source": "a test's narrow Wav2Letter",
-                             "file": "gpubench/configs/tiny_w2l.json", "reduced": [],
+    bench["configs"].append({"name": config, "source": "a test's narrow Wav2Letter",
+                             "file": f"gpubench/configs/{config}.json", "reduced": [],
                              "why": "CPU test"})
-    bench["workloads"].append({"name": name, "config": "tiny_w2l", "traffic": "tiny_mix",
+    bench["workloads"].append({"name": name, "config": config, "traffic": "tiny_mix",
                                "chips": 1, "why": "CPU test"})
     write_json(path, bench)
 

@@ -7,9 +7,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
+import types
 
+import numpy as np
 import pytest
 
 from conftest import REPO, TINY_CONFIG, TINY_TRAFFIC, add_tiny_cell, copy_harness, write_json
@@ -174,3 +177,104 @@ def test_tiny_cell_files_are_what_the_copy_holds(tiny_root):
         assert json.load(f) == TINY_CONFIG
     with open(os.path.join(tiny_root, "traffic", "tiny_mix.json")) as f:
         assert json.load(f) == TINY_TRAFFIC
+
+
+# a second architecture as files alone: the Wav2Letter reference under
+# another name, a step's operations counted its own way (the card's peak
+# over 100 a step, so that ``train_mfu`` reads steps per second of the
+# window), no count of the padded convolutions
+TINY_ALT = '''"""A test's second architecture."""
+
+from gpubench import yardstick
+from gpubench.reference.wav2letter import (logit_frames, logit_lengths,  # noqa: F401
+                                           make_weights, program_flags, train_steps)
+
+
+def train_flops_valid(config, seq_lengths):
+    return yardstick.PEAK_BF16_FLOPS / 100.0
+'''
+
+
+def snapshot(root: str) -> dict:
+    files = {}
+    for folder, _dirs, names in os.walk(root):
+        for name in names:
+            path = os.path.join(folder, name)
+            with open(path, "rb") as f:
+                files[path] = f.read()
+    return files
+
+
+def test_a_second_architecture_comes_in_as_files(tmp_path):
+    root = str(tmp_path)
+    package = copy_harness(root)
+    with open(os.path.join(package, "reference", "tiny_alt.py"), "w") as f:
+        f.write(TINY_ALT)
+    add_tiny_cell(root, package, name="alt_cell", config="tiny_alt",
+                  config_data=dict(TINY_CONFIG, model="tiny_alt"))
+    before = snapshot(root)
+
+    for trace in ("0", "1"):
+        code, result, modules, out, err = run_copy(
+            root, "--workload", "alt_cell", "--seed", str(2**31 + 9), "--seconds", "1",
+            "--trace", trace)
+        assert code == 0, err[-3000:]
+        assert result["correct"] is True, out[-3000:]
+        assert not modules & NOT_LOADED
+        metrics = result["metrics"]
+        if trace == "0":
+            assert {"train_audio_s_per_s", "train_step_ms_p95", "setup_s"} <= set(metrics)
+            continue
+        window = re.search(r"^window: (\d+) steps in ([0-9.]+) s", out, re.M)
+        assert int(window.group(1)) == result["attempted"] > 0
+        steps_per_s = result["attempted"] / float(window.group(2))
+        assert metrics["train_mfu"]["value"] == pytest.approx(steps_per_s, rel=2e-3)
+        assert "conv_roofline.train" not in metrics
+        assert "Traceback" not in err
+    after = snapshot(root)
+    assert {p: after.get(p) for p in before} == before
+
+
+def test_a_model_with_no_reference_fails_before_set_up(tmp_path, monkeypatch):
+    from gpubench import corpus, run
+
+    root = str(tmp_path)
+    package = copy_harness(root)
+    add_tiny_cell(root, package, name="lost_cell", config="tiny_lost",
+                  config_data=dict(TINY_CONFIG, model="no_such_model"))
+
+    def no_corpus(*args, **kwargs):
+        raise AssertionError("set-up began")
+
+    monkeypatch.setattr(corpus, "draw", no_corpus)
+    with pytest.raises(ValueError, match="tiny_lost: model 'no_such_model'"):
+        run.main(["--workload", "lost_cell", "--seed", "3", "--seconds", "0.5"],
+                  device="cpu", package_dir=package)
+
+
+def test_readers_take_their_counts_from_the_architecture(monkeypatch):
+    """``conv_roofline.train`` reads nothing, and ``ctc_roofline.train``
+    the module's own lengths, for an architecture without a padded count."""
+    from gpubench import manifest
+    from gpubench.kinds.train import Step
+    from gpubench.reference import wav2letter
+
+    alt = types.ModuleType("gpubench.reference.tiny_alt")
+    for name in manifest.ARCHITECTURE:
+        setattr(alt, name, getattr(wav2letter, name))
+    alt.logit_lengths = lambda config, seq_lengths: seq_lengths // 4
+    alt.logit_frames = lambda config, frames: -(-frames // 4)
+    monkeypatch.setitem(sys.modules, "gpubench.reference.tiny_alt", alt)
+
+    trace = types.SimpleNamespace(op_device_s=lambda ops: 1.0, kernel_s=lambda names: 1.0)
+    steps = [Step(256, 8, np.array([256, 200]), np.array([8, 5]))]
+    bench = manifest.Manifest.load()
+    read = {}
+    for model in ("wav2letter", "tiny_alt"):
+        ctx = types.SimpleNamespace(config=dict(TINY_CONFIG, model=model),
+                                    result=types.SimpleNamespace(trace=trace, steps=steps))
+        read[model] = {m: bench.reader(m)(ctx) for m in ("conv_roofline.train",
+                                                        "ctc_roofline.train")}
+    assert read["wav2letter"]["conv_roofline.train"] > 0
+    assert read["tiny_alt"]["conv_roofline.train"] is None
+    assert 0 < read["tiny_alt"]["ctc_roofline.train"] < read["wav2letter"]["ctc_roofline.train"]

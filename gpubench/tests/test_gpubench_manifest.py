@@ -62,7 +62,7 @@ def test_every_cell_has_its_files_and_metrics():
     for cell in BENCH["workloads"]:
         used.add(cell["config"])
         assert cell["chips"] in (1, 4)
-        assert bench.config(cell)["model"] == "wav2letter"
+        manifest.architecture(bench.config(cell), cell["config"])
         traffic = bench.traffic(cell)
         manifest.kind(traffic["kind"])
         assert check.load_limits(cell["name"])

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from gpubench import check, corpus
+from gpubench.reference import common
 from gpubench.reference import wav2letter as ref
 
 from conftest import TINY_CONFIG, TINY_TRAFFIC
@@ -69,11 +70,11 @@ def test_reference_follows_the_port_in_float32():
 
 def test_fp8_control_rounds_coarser_than_bf16():
     x = torch.randn(4096, dtype=torch.float64).float()
-    fp8 = ref.fp8_quantize(x)
+    fp8 = common.fp8_quantize(x)
     bf16 = x.bfloat16().float()
     e8 = ((fp8 - x).abs() / x.abs().clamp(min=1e-3)).median()
     e16 = ((bf16 - x).abs() / x.abs().clamp(min=1e-3)).median()
     assert 8 < float(e8 / e16) < 64
     g = torch.ones_like(x, requires_grad=True)
-    (ref.fp8_quantize(g * x) * 3.3).sum().backward()
-    assert torch.equal(g.grad, x * ref._fp8_round(torch.full_like(x, 3.3)))
+    (common.fp8_quantize(g * x) * 3.3).sum().backward()
+    assert torch.equal(g.grad, x * common._fp8_round(torch.full_like(x, 3.3)))

@@ -1,4 +1,5 @@
-"""The yardstick's counts against brute counts at tiny shapes."""
+"""The yardstick's counts, and the Wav2Letter reference's, against brute
+counts at tiny shapes."""
 
 from __future__ import annotations
 
@@ -28,18 +29,18 @@ def counted_conv_flops(batch: int, frames: int) -> tuple[float, float]:
 
 @pytest.mark.parametrize("batch,frames", [(1, 64), (3, 100), (2, 257)])
 def test_padded_conv_flops(batch, frames):
-    assert yardstick.conv_flops_padded(CONFIG, batch, frames) == counted_conv_flops(batch, frames)
+    assert ref.conv_flops_padded(CONFIG, batch, frames) == counted_conv_flops(batch, frames)
 
 
 def test_valid_flops_are_each_rows_own():
     lengths = [64, 100, 132]
     want = sum(sum(counted_conv_flops(1, n)) for n in lengths)
-    assert yardstick.train_flops_valid(CONFIG, lengths) == want
+    assert ref.train_flops_valid(CONFIG, lengths) == want
 
 
 def test_layers_are_the_published_stack():
     cfg = dict(CONFIG, input_size=39, base_channels=250, wide_channels=2000, num_body_layers=7)
-    specs = yardstick.layers(cfg)
+    specs = ref.layer_specs(cfg)
     assert len(specs) == 11 and specs[0] == (48, 2, 39, 250, True) and specs[-1][3:] == (29, False)
     params = sum(w * cin * cout + cout for w, _s, cin, cout, _r in specs)
     assert 22e6 < params < 24e6

@@ -1,16 +1,15 @@
-"""The benchmark's yardstick: the card's peaks, the model's operations
-counted from shapes, and the CTC kernels' least times.
+"""The benchmark's yardstick: the card's peaks and the CTC kernels' least
+times, which take the logit lengths as arguments and know no model.
 
-Nothing here imports the program. The layer list is the reference's, from
-the configuration file; the counts are those the algorithm needs, never
-what a kernel happens to do.
+Nothing here imports the program. A model's operations are counted from
+its shapes by its reference module (``train_flops_valid``,
+``conv_flops_padded``: ``reference/__init__.py``); the counts are those
+the algorithm needs, never what a kernel happens to do.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from gpubench.reference.wav2letter import layer_specs as layers
 
 # NVIDIA H100 SXM data sheet, dense rates, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -25,39 +24,6 @@ CTC_ALPHA_OPS_PER_STATE_FRAME = 14
 CTC_BETA_OPS_PER_STATE_FRAME = 19
 # per needed class and frame: exp, subtract, multiply by the cotangent
 CTC_BETA_OPS_PER_CLASS_FRAME = 3
-
-
-def conv_macs_per_output_frame(config: dict) -> list[int]:
-    """Multiply-adds of each layer for one output frame of one row."""
-    return [width * cin * cout for width, _s, cin, cout, _r in layers(config)]
-
-
-def train_flops_valid(config: dict, seq_lengths) -> float:
-    """Operations one train step needs for these rows' valid frames: the
-    forward, the weight gradients and the input gradients of every layer
-    but the first (the features need none). A row of ``n`` input frames
-    has ``n // 2`` valid frames after the stride-2 first layer, and every
-    later layer keeps that count."""
-    macs = conv_macs_per_output_frame(config)
-    per_frame = 2.0 * (3 * sum(macs) - macs[0])
-    frames = int((np.asarray(seq_lengths, dtype=np.int64) // 2).sum())
-    return per_frame * frames
-
-
-def conv_flops_padded(config: dict, batch: int, frames: int) -> tuple[float, float]:
-    """(forward, backward) operations of the convolutions at the padded
-    shape as run: ``batch`` rows of ``frames`` input frames, every output
-    frame of every layer computed, SAME padding. The backward is the weight
-    gradient of every layer and the input gradient of every layer but the
-    first."""
-    fwd = bwd = 0.0
-    t = frames
-    for i, (width, stride, cin, cout, _relu) in enumerate(layers(config)):
-        t = -(-t // stride)
-        f = 2.0 * batch * t * width * cin * cout
-        fwd += f
-        bwd += f if i == 0 else 2 * f
-    return fwd, bwd
 
 
 def ctc_alpha_bound_s(logit_lengths, label_lengths, frames: int, label_width: int,
