@@ -3,7 +3,12 @@
 Counterpart of ``speecht_tpu/cli.py``. The six subcommands have the JAX
 package's base and per-command flags, with the same names and defaults
 but one (``export --export-platforms`` names torch devices and defaults to
-``cuda,cpu``, not ``tpu,cpu``), plus ``--device``. On every subcommand
+``cuda,cpu``, not ``tpu,cpu``), plus ``--device`` and ``--model``
+(``wav2letter``, the default, or ``conformer`` with its widths:
+``train``, also on ``--data-parallel`` ranks, and ``evaluate``, greedy or
+with ``--language-model``, take it; ``record``, ``export``,
+``--model-parallel``, ``--seq-parallel``, ``--reference-weights`` and
+``SPEECHT_PALLAS_CONV0=1`` refuse it). On every subcommand
 but ``preprocess`` it is ``--device {cuda,cpu}`` (default ``cuda``;
 without a card it raises). On ``preprocess`` it keeps
 the JAX flag's meaning, the DSP on the accelerator: ``preprocess`` alone
@@ -55,9 +60,13 @@ class CLI:
         self._add_export_parser()
         self._parsed = None
 
-    def _create_base_parser(self, device: bool = True) -> argparse.ArgumentParser:
+    def _create_base_parser(
+        self, device: bool = True, model: bool = True
+    ) -> argparse.ArgumentParser:
         """The flags every subcommand shares; ``device=False`` leaves out
-        ``--device``, which ``preprocess`` defines with its own meaning."""
+        ``--device``, which ``preprocess`` defines with its own meaning,
+        and ``model=False`` the network's flags (``--model`` and the
+        Conformer's widths), for ``preprocess``, which builds none."""
         p = argparse.ArgumentParser(add_help=False)
         p.add_argument(
             "--mfcc", dest="feature_type", action="store_const", const="mfcc",
@@ -104,6 +113,8 @@ class CLI:
         p.add_argument(
             "--num-body-layers", dest="num_body_layers", type=int, default=7,
         )
+        if model:
+            self._add_model_arguments(p)
         p.add_argument(
             "--group-by-length", dest="group_by_length", action="store_true",
             help="Batch similar-length utterances together.",
@@ -122,6 +133,32 @@ class CLI:
             )
         p.set_defaults(feature_type="power")
         return p
+
+    @staticmethod
+    def _add_model_arguments(p):
+        """``--model`` and the Conformer's widths (Conformer (L)'s by
+        default; Wav2Letter's are ``--base-channels`` and the two after it)."""
+        p.add_argument(
+            "--model", dest="model", type=str, default="wav2letter",
+            choices=["wav2letter", "conformer"],
+            help="The acoustic model: Wav2Letter's conv stack, or "
+            "Conformer-CTC (train, and evaluate greedy or with "
+            "--language-model; Conformer (L)'s widths by default).",
+        )
+        p.add_argument("--d-model", dest="d_model", type=int, default=512)
+        p.add_argument("--num-heads", dest="num_heads", type=int, default=8)
+        p.add_argument("--ffn-dim", dest="ffn_dim", type=int, default=2048)
+        p.add_argument("--num-blocks", dest="num_blocks", type=int, default=17)
+        p.add_argument("--conv-kernel", dest="conv_kernel", type=int, default=32)
+        p.add_argument(
+            "--subsampling-channels", dest="subsampling_channels", type=int,
+            default=512,
+        )
+        p.add_argument(
+            "--dropout", dest="dropout", type=float, default=0.1,
+            help="The Conformer's dropout (each module's output, the FFN's "
+            "Swish, the attention probabilities).",
+        )
 
     def _add_language_model_arguments(self, parser):
         parser.add_argument(
@@ -171,7 +208,7 @@ class CLI:
     def _add_preprocess_parser(self):
         p = self.subparsers.add_parser(
             "preprocess", help="Preprocess and cache all audio.",
-            parents=[self._create_base_parser(device=False)],
+            parents=[self._create_base_parser(device=False, model=False)],
         )
         p.add_argument("--train-only", dest="train_only", action="store_true")
         p.add_argument("--test-only", dest="test_only", action="store_true")

@@ -1,7 +1,8 @@
 """Executor scaffolding shared by the commands.
 
 Counterpart of ``speecht_tpu/execution.py``: model construction from the
-flags, the fresh train state (``init_state``), the corpus reader, the
+flags (``--model``: Wav2Letter, or the Conformer-CTC the JAX package does
+not have), the fresh train state (``init_state``), the corpus reader, the
 input-size probe (width of the first cached sample), the grid of ranks
 (``create_mesh``: ``--data-parallel``/``--model-parallel``, a ``1 x 1``
 grid for one process), the batch loader wired to a per-command sample
@@ -14,6 +15,7 @@ corpus (``shard_kwargs``) and builds ``local_batch_size`` rows.
 from __future__ import annotations
 
 import abc
+import os
 from typing import Iterator
 
 import torch
@@ -21,7 +23,9 @@ import torch
 from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.data.pipeline import PrefetchLoader
 from speecht_tpu_torch.data.reader import SpeechCorpusReader
+from speecht_tpu_torch.models import conformer
 from speecht_tpu_torch.models.wav2letter import Wav2Letter, Wav2LetterConfig
+from speecht_tpu_torch.ops import conv0
 from speecht_tpu_torch.parallel import comm
 from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.train.checkpoint import CheckpointManager
@@ -58,11 +62,56 @@ def device_name(device: torch.device) -> str:
     return str(device)
 
 
-def build_model(input_size: int, flags, seed: int = 0, mesh=None) -> Wav2Letter:
-    """Wav2Letter with the reference dimensions by default;
-    --base-channels/--wide-channels/--num-body-layers scale it. Initial
-    weights come from a CPU generator seeded with ``seed``; ``mesh`` with a
-    model axis splits the wide layers over it."""
+def model_name(flags) -> str:
+    """``--model`` (``wav2letter`` where the flags have none). A ValueError
+    naming the path where the Conformer is asked of one that runs
+    Wav2Letter alone."""
+    name = getattr(flags, "model", "wav2letter")
+    if name != "conformer":
+        return name
+    for asked, why in (
+        (getattr(flags, "model_parallel", 1) > 1,
+         "--model-parallel splits Wav2Letter's wide layers"),
+        ((getattr(flags, "seq_parallel", 0) or 0) > 1,
+         "--seq-parallel shards Wav2Letter's conv stack over time"),
+        (os.environ.get(conv0.ENV_VAR) == "1",
+         f"{conv0.ENV_VAR}=1 runs Wav2Letter's conv_0 kernel"),
+        (bool(getattr(flags, "reference_weights", None)),
+         "--reference-weights holds Wav2Letter's weights"),
+    ):
+        if asked:
+            raise ValueError(f"--model conformer: {why}; it trains on one rank or on "
+                             "--data-parallel ranks and evaluates greedy or with "
+                             "--language-model")
+    return name
+
+
+def refuse_conformer(flags, path: str) -> None:
+    """A ValueError where ``path`` (a command that runs Wav2Letter alone)
+    is asked for ``--model conformer``."""
+    if getattr(flags, "model", "wav2letter") != "wav2letter":
+        raise ValueError(f"{path} runs Wav2Letter alone; --model {flags.model} "
+                         "is not supported there")
+
+
+def build_model(input_size: int, flags, seed: int = 0, mesh=None):
+    """``--model``'s network. Wav2Letter with the reference dimensions by
+    default; --base-channels/--wide-channels/--num-body-layers scale it,
+    and ``mesh`` with a model axis splits the wide layers over it. The
+    Conformer at Conformer (L)'s by default; --d-model, --num-heads,
+    --ffn-dim, --num-blocks, --conv-kernel, --subsampling-channels and
+    --dropout set it. Initial weights come from a CPU generator seeded
+    with ``seed``."""
+    generator = torch.Generator().manual_seed(seed)
+    if model_name(flags) == "conformer":
+        default = conformer.ConformerConfig()
+        return conformer.Conformer(conformer.ConformerConfig(
+            input_size=input_size,
+            num_classes=vocabulary.NUM_CLASSES,
+            **{k: getattr(flags, k, getattr(default, k)) for k in (
+                "d_model", "num_heads", "ffn_dim", "num_blocks", "conv_kernel",
+                "subsampling_channels", "dropout", "compute_dtype")},
+        ), generator=generator)
     cfg = Wav2LetterConfig(
         input_size=input_size,
         num_classes=vocabulary.NUM_CLASSES,
@@ -71,22 +120,19 @@ def build_model(input_size: int, flags, seed: int = 0, mesh=None) -> Wav2Letter:
         num_body_layers=getattr(flags, "num_body_layers", 7),
         compute_dtype=getattr(flags, "compute_dtype", "bfloat16"),
     )
-    return Wav2Letter(cfg, generator=torch.Generator().manual_seed(seed), mesh=mesh)
+    return Wav2Letter(cfg, generator=generator, mesh=mesh)
 
 
 def init_state(
-    model: Wav2Letter, flags, generator: torch.Generator | None = None
+    model, flags, generator: torch.Generator | None = None
 ) -> tuple[TrainState, ClipAdam]:
     """Fresh TrainState over ``model``'s parameters, reference optimizer
     settings. The parameters are drawn anew from ``generator`` (a CPU
-    generator seeded with 0 by default) and keep the model's device."""
+    generator seeded with 0 by default; the model's ``reset_parameters``)
+    and keep the model's device."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    device = next(model.parameters()).device
-    for name in model.layer_names:
-        layer = getattr(model, name)
-        layer.to("cpu").reset_parameters(generator)
-        layer.to(device)
+    model.reset_parameters(generator)
     tx = make_optimizer(
         max_gradient_norm=getattr(flags, "max_gradient_norm", 5.0),
         epsilon=getattr(flags, "epsilon", 1e-3),
@@ -120,6 +166,7 @@ class DatasetExecutor(abc.ABC):
 
     def __init__(self, flags):
         self.flags = flags
+        model_name(flags)  # a path the model cannot take stops here
         self.device = resolve_device(getattr(flags, "device", "cuda"))
         self.reader = SpeechCorpusReader(flags.data_dir)
 
@@ -191,7 +238,8 @@ class DatasetExecutor(abc.ABC):
         )
 
     def checkpoint_manager(self) -> CheckpointManager:
-        return CheckpointManager(self.flags.run_train_dir, split=self.model.split)
+        return CheckpointManager(self.flags.run_train_dir, split=self.model.split,
+                                 buffers=dict(self.model.named_buffers()))
 
     @abc.abstractmethod
     def run(self):

@@ -13,13 +13,14 @@ program for each of ``--export-platforms`` (``serving.py``).
 
 from __future__ import annotations
 
-from speecht_tpu_torch.execution import build_model, resolve_device
+from speecht_tpu_torch.execution import build_model, refuse_conformer, resolve_device
 from speecht_tpu_torch.train.checkpoint import CheckpointManager, export_weights
 
 
 class Exporting:
     def __init__(self, flags):
         self.flags = flags
+        refuse_conformer(flags, "export")
         self.device = resolve_device(getattr(flags, "device", "cuda"))
 
     def run(self):

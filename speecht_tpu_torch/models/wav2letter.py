@@ -251,14 +251,30 @@ class Wav2Letter(nn.Module):
             in_channels = out_channels
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for name in self.layer_names:
-            getattr(self, name).reset_parameters(generator)
+        self.reset_parameters(generator)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draws every layer anew from the CPU ``generator``, layer by
+        layer on the CPU; each layer keeps its device."""
+        for name in self.layer_names:
+            layer = getattr(self, name)
+            device = layer.weight.device
+            layer.to("cpu").reset_parameters(generator)
+            layer.to(device)
+
+    def forward(
+        self, features: torch.Tensor, seq_lengths: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """``seq_lengths`` is taken and not read: the convs need no mask,
+        and a padded frame's logits are left out by :meth:`output_length`."""
         x = features.transpose(1, 2)
         for name in self.layer_names:
             x = getattr(self, name)(x, self.compute_dtype)
         return x.transpose(1, 2).float()
+
+    @staticmethod
+    def output_length(seq_lengths: torch.Tensor) -> torch.Tensor:
+        return output_length(seq_lengths)
 
 
 def output_length(seq_lengths: torch.Tensor) -> torch.Tensor:

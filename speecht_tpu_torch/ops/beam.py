@@ -44,7 +44,6 @@ import torch
 
 from speecht_tpu_torch import native, vocabulary
 from speecht_tpu_torch.execution import finish_readback, start_readback
-from speecht_tpu_torch.models.wav2letter import output_length
 from speecht_tpu_torch.ops import decode
 from speecht_tpu_torch.parallel import mesh as pmesh
 from speecht_tpu_torch.train import step as tstep
@@ -150,6 +149,7 @@ class BeamSearchDecoder:
             model_path, vocab = find_lm_files(lm_config.language_model)
             self.lm = native.NGramLM(model_path, vocab)
         self._loss_fn = tstep.make_loss_fn(model, self.mesh)
+        self._output_length = model.output_length
         self._audio_loss_fn = None
         if feature_type is not None:
             from speecht_tpu_torch.data import features_device
@@ -248,7 +248,7 @@ class BeamSearchDecoder:
         on the batch's device; padding rows have length 0."""
         if self._audio_loss_fn is None:
             avg_loss, logits = self._loss_fn(batch)
-            logit_lengths = output_length(batch.seq_lengths)
+            logit_lengths = self._output_length(batch.seq_lengths)
         else:
             avg_loss, logits, logit_lengths = self._audio_loss_fn(batch)
             logit_lengths = torch.where(

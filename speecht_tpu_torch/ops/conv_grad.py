@@ -16,9 +16,10 @@ about 2% of the bf16 peak, while its forward engines run the same shapes
 at about 30%; and its bf16 result is the coarser (against float64, 4
 times the rms error of one rounding, which the forward form reads).
 :func:`conv1d` takes :class:`ForwardDgradConv1d` only while a gradient is
-being taken (grad mode on and the weight requiring grad) through a
+being taken (grad mode on and the weight requiring grad) through a dense
 stride-1 layer at least :data:`MIN_WIDTH` taps wide; evaluate, serving,
-the export and the narrower layers keep plain ``F.conv1d``. The weight
+the export, the narrower layers and grouped convs (the Conformer's
+depthwise one) keep plain ``F.conv1d``. The weight
 gradient stays ``aten::convolution_backward`` (cuDNN's wgrad), so both
 convs of the backward run under cuDNN's own operators.
 """
@@ -49,12 +50,14 @@ MIN_WIDTH = 20
 input_grads = 0
 
 
-def engages(weight: torch.Tensor, stride: int) -> bool:
+def engages(weight: torch.Tensor, stride: int, groups: int = 1) -> bool:
     """True when a conv of this weight and stride takes the forward form:
-    a gradient is being taken, the layer has stride 1 and is at least
+    a gradient is being taken, the layer is dense (one group: the form's
+    transposed weight is a dense conv's), has stride 1 and is at least
     ``MIN_WIDTH`` taps wide."""
     return (
         stride == 1
+        and groups == 1
         and weight.shape[-1] >= MIN_WIDTH
         and torch.is_grad_enabled()
         and weight.requires_grad
@@ -98,12 +101,13 @@ def conv1d(
     weight: torch.Tensor,
     stride: int,
     pads: tuple[int, int] | None = None,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """``F.conv1d(F.pad(x, pads), weight, stride=stride)`` (no pad when
-    ``pads`` is None), through :class:`ForwardDgradConv1d` when
-    :func:`engages` says so."""
-    if engages(weight, stride):
+    """``F.conv1d(F.pad(x, pads), weight, stride=stride, groups=groups)``
+    (no pad when ``pads`` is None), through :class:`ForwardDgradConv1d`
+    when :func:`engages` says so."""
+    if engages(weight, stride, groups):
         return ForwardDgradConv1d.apply(x, weight, *(pads or (0, 0)))
     if pads is not None:
         x = F.pad(x, pads)
-    return F.conv1d(x, weight, stride=stride)
+    return F.conv1d(x, weight, stride=stride, groups=groups)

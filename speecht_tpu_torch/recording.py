@@ -34,7 +34,7 @@ import torch
 from speecht_tpu_torch import vocabulary
 from speecht_tpu_torch.data import features as F
 from speecht_tpu_torch.data.pipeline import single_batch, to_device
-from speecht_tpu_torch.execution import build_model, resolve_device
+from speecht_tpu_torch.execution import build_model, refuse_conformer, resolve_device
 from speecht_tpu_torch.train import step as tstep
 from speecht_tpu_torch.train.checkpoint import CheckpointManager
 from speecht_tpu_torch.weights import load_weight_dir
@@ -57,6 +57,7 @@ def host_features(audio: np.ndarray, feature_type: str, rate: int) -> np.ndarray
 class Recording:
     def __init__(self, flags, recorder=None):
         self.flags = flags
+        refuse_conformer(flags, "record")
         self.device = resolve_device(getattr(flags, "device", "cuda"))
         # the seam: tests and `--audio-source` put a file-backed recorder
         # in the microphone's place

@@ -64,7 +64,7 @@ import torch
 from torch import nn
 
 from speecht_tpu_torch import vocabulary
-from speecht_tpu_torch.models.wav2letter import output_length
+from speecht_tpu_torch.models.wav2letter import Wav2Letter
 from speecht_tpu_torch.ops import conv0, decode
 
 ARTIFACT_STEM = "wav2letter_greedy"
@@ -82,17 +82,27 @@ def artifact_name(platform: str, from_audio: bool) -> str:
     return f"{stem}.{platform}.pt2"
 
 
+def _wav2letter(model):
+    """``model``; a ValueError for any other network: the program's
+    contract (T' = T // 2, the conv stack alone) is Wav2Letter's."""
+    if not isinstance(model, Wav2Letter):
+        raise ValueError(
+            f"serving holds Wav2Letter alone, not {type(model).__name__}"
+        )
+    return model
+
+
 class _Infer(nn.Module):
     """features [B, T, F] f32, seq_lengths [B] -> (ids, lengths, logits)."""
 
     def __init__(self, model):
         super().__init__()
-        self.model = model
+        self.model = _wav2letter(model)
 
     def forward(self, features, seq_lengths):
         logits = self.model(features)
         decoded, dec_lengths, _scores = decode.greedy_decode(
-            logits, output_length(seq_lengths)
+            logits, self.model.output_length(seq_lengths)
         )
         return decoded, dec_lengths, logits.float()
 
@@ -104,14 +114,14 @@ class _AudioInfer(nn.Module):
         super().__init__()
         from speecht_tpu_torch.data import features_device
 
-        self.model = model
+        self.model = _wav2letter(model)
         self.front_end = features_device.make_front_end(feature_type, wire_sr=wire_sr)
 
     def forward(self, audio, num_samples):
         features, frame_lengths = self.front_end(audio, num_samples)
         logits = self.model(features)
         decoded, dec_lengths, _scores = decode.greedy_decode(
-            logits, output_length(frame_lengths)
+            logits, self.model.output_length(frame_lengths)
         )
         return decoded, dec_lengths, logits.float()
 

@@ -35,9 +35,29 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 
 PREFIX = "speecht."
-# a 51-s benchmark window holds ~420 steps of ~4 main-thread and ~4 loader
-# spans; four times that
-CAPACITY = 16384
+# the spans a train step logs: step.forward, step.backward, step.optimizer
+# and loader.wait on the loop's thread, loader.produce, .build, .h2d and
+# .put on the loader's
+STEP_SPANS = 8
+
+
+def conformer_spans(num_blocks: int) -> int:
+    """The module spans of one Conformer forward: ``conformer.subsample``
+    and, a block, ``conformer.ffn`` twice, ``conformer.mhsa`` and
+    ``conformer.conv`` (``models/conformer.py``)."""
+    return 1 + 4 * num_blocks
+
+
+# the most steps a traced 51-s benchmark window can hold of the most spans
+# a step: a Conformer (L) step (17 blocks) on the LibriSpeech-shaped batches
+# (B = 64, 434 logit frames a row on average) needs about 24 TFLOP, at
+# least 24 ms at the H100's dense bf16 peak, so at most 2,100 steps; a
+# Wav2Letter step logs 8 spans, and its traced windows have held at most
+# 1,511 steps
+TRACED_WINDOW_STEPS = 2100
+# twice the spans of the longest such window, so that a traced window
+# drops none
+CAPACITY = 2 * TRACED_WINDOW_STEPS * (STEP_SPANS + conformer_spans(17))
 
 
 class Span(NamedTuple):

@@ -10,7 +10,10 @@ port cannot read (orbax is a JAX library). The port's format:
 
 with every tensor on the CPU and the params, ``mu`` and ``nu`` keyed by
 the model's state-dict names (``conv_i.weight [O, I, W]``,
-``conv_i.bias``). A save writes ``ckpt-<step>.pt.tmp-<pid>`` and publishes
+``conv_i.bias``). A model with buffers (the Conformer's BatchNorm running
+statistics) also saves them, under ``"buffers"``, and restores them with
+the parameters; Wav2Letter has none, and its files have no such key. A
+save writes ``ckpt-<step>.pt.tmp-<pid>`` and publishes
 it with ``os.replace``, so a crash mid-write leaves no file under a
 checkpoint's name; leftover temporary files are ignored. The newest
 ``max_to_keep`` checkpoints are kept.
@@ -59,12 +62,16 @@ class CheckpointManager:
     def __init__(
         self, directory: str, max_to_keep: int = 5,
         split: TensorSplit = TensorSplit(),
+        buffers: dict[str, torch.Tensor] | None = None,
     ):
         """``split``: the model's tensor-parallel split, so that the file
-        holds full tensors and each rank restores its shards."""
+        holds full tensors and each rank restores its shards. ``buffers``:
+        the model's buffers by name (``named_buffers``), saved from and
+        restored into in place; none saves no ``"buffers"`` key."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.split = split
+        self.buffers = buffers or {}
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
@@ -107,6 +114,8 @@ class CheckpointManager:
             "step": int(state.step),
             "learning_rate": float(state.learning_rate),
         }
+        if self.buffers:
+            payload["buffers"] = _cpu(self.buffers)
         if comm.rank() == 0:
             tmp = f"{path}.tmp-{os.getpid()}"
             with open(tmp, "wb") as f:
@@ -173,6 +182,7 @@ class CheckpointManager:
         shard = self.split.shard
         try:
             copy_into(template.params, shard(payload["params"]), "params")
+            self._restore_buffers(payload)
             copy_into(template.opt_state.mu, shard(payload["mu"]), "mu")
             copy_into(template.opt_state.nu, shard(payload["nu"]), "nu")
             device = template.step.device
@@ -205,9 +215,14 @@ class CheckpointManager:
         step, payload = self._load_latest("evaluation")
         try:
             copy_into(params, self.split.shard(payload["params"]), "params")
+            self._restore_buffers(payload)
         except Exception as e:
             raise self._corrupt(step, e) from e
         return int(payload["step"])
+
+    def _restore_buffers(self, payload: dict) -> None:
+        if self.buffers:
+            copy_into(self.buffers, payload["buffers"], "buffers")
 
     def restore_or_create(
         self, template: TrainState, reset_learning_rate: float | None = None

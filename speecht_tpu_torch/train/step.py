@@ -47,9 +47,10 @@ import math
 from typing import Callable
 
 import torch
+from torch import nn
 
 from speecht_tpu_torch import telemetry
-from speecht_tpu_torch.models.wav2letter import Wav2Letter, output_length
+from speecht_tpu_torch.models.wav2letter import Wav2Letter
 from speecht_tpu_torch.ops import ctc_cuda, decode
 from speecht_tpu_torch.parallel.mesh import Mesh
 from speecht_tpu_torch.train.state import ClipAdam, TrainState
@@ -60,10 +61,11 @@ def perplexity(loss: float) -> float:
 
 
 def make_loss_fn(
-    model: Wav2Letter, mesh: Mesh | None = None,
+    model: nn.Module, mesh: Mesh | None = None,
     logits_fn: Callable | None = None,
 ) -> Callable:
-    """batch -> (average CTC loss, logits).
+    """batch -> (average CTC loss, logits): ``model(features, seq_lengths)``
+    and the CTC loss over ``model.output_length(seq_lengths)`` frames.
 
     The average runs over rows that are real (``seq_lengths > 0``; the
     all-zero rows of a padded last batch are not) and CTC-feasible (loss
@@ -77,8 +79,9 @@ def make_loss_fn(
     mesh = mesh or Mesh()
 
     def loss_fn(batch):
-        logits = logits_fn(batch) if logits_fn else model(batch.features)
-        logit_lengths = output_length(batch.seq_lengths)
+        logits = (logits_fn(batch) if logits_fn
+                  else model(batch.features, batch.seq_lengths))
+        logit_lengths = model.output_length(batch.seq_lengths)
         # the CUDA alpha kernel on the card, the plain version on the CPU
         losses = ctc_cuda.ctc_loss(
             logits, logit_lengths, batch.labels, batch.label_lengths
@@ -98,16 +101,17 @@ def make_loss_fn(
 
 
 def make_eval_step(
-    model: Wav2Letter, mesh: Mesh | None = None, loss_fn: Callable | None = None
+    model: nn.Module, mesh: Mesh | None = None, loss_fn: Callable | None = None
 ) -> Callable:
-    """Returns batch -> (loss, decoded [B, T//2], decoded_lengths [B])."""
+    """Returns batch -> (loss, decoded [B, T'], decoded_lengths [B]), T' the
+    model's logit frames (``model.output_length``)."""
     loss_fn = loss_fn or make_loss_fn(model, mesh)
 
     @torch.inference_mode()
     def eval_step(batch):
         avg_loss, logits = loss_fn(batch)
         decoded, dec_lengths, _scores = decode.greedy_decode(
-            logits, output_length(batch.seq_lengths)
+            logits, model.output_length(batch.seq_lengths)
         )
         return avg_loss, decoded, dec_lengths
 
@@ -126,7 +130,7 @@ def make_forward_step(model: Wav2Letter) -> Callable:
 
 
 def make_audio_loss_fn(
-    model: Wav2Letter, front_end: Callable, mesh: Mesh | None = None
+    model: nn.Module, front_end: Callable, mesh: Mesh | None = None
 ) -> Callable:
     """AudioBatch -> (average CTC loss, logits, logit_lengths): the
     ``--from-audio`` twin of :func:`make_loss_fn`, with ``front_end``
@@ -142,8 +146,8 @@ def make_audio_loss_fn(
 
     def loss_fn(batch):
         feats, frame_lengths = front_end(batch.audio, batch.num_samples)
-        logits = model(feats)
-        logit_lengths = output_length(frame_lengths)
+        logits = model(feats, frame_lengths)
+        logit_lengths = model.output_length(frame_lengths)
         losses = ctc_cuda.ctc_loss(
             logits, logit_lengths, batch.labels, batch.label_lengths
         )
@@ -158,9 +162,9 @@ def make_audio_loss_fn(
 
 
 def make_audio_eval_step(
-    model: Wav2Letter, front_end: Callable, mesh: Mesh | None = None
+    model: nn.Module, front_end: Callable, mesh: Mesh | None = None
 ) -> Callable:
-    """AudioBatch -> (loss, decoded [B, T//2], decoded_lengths [B]); the
+    """AudioBatch -> (loss, decoded [B, T'], decoded_lengths [B]); the
     decoded lengths of padding rows are 0."""
     loss_fn = make_audio_loss_fn(model, front_end, mesh)
 
@@ -176,7 +180,7 @@ def make_audio_eval_step(
     return eval_step
 
 
-def _make_grad_fn(model: Wav2Letter, mesh: Mesh | None, loss_fn=None) -> Callable:
+def _make_grad_fn(model: nn.Module, mesh: Mesh | None, loss_fn=None) -> Callable:
     """(params, batch) -> (this rank's grads by name, average loss), loss
     detached."""
     loss_fn = loss_fn or make_loss_fn(model, mesh)
@@ -207,7 +211,7 @@ def _reduce_grads(grads: dict, mesh: Mesh) -> dict:
     return out
 
 
-def _grad_norm(grads: dict, model: Wav2Letter, mesh: Mesh):
+def _grad_norm(grads: dict, model: nn.Module, mesh: Mesh):
     """The global norm of the whole model's gradient: the tensor-parallel
     shards' squares summed over the model group, the replicated
     parameters counted once. None for an unsplit model (the optimizer
@@ -232,8 +236,10 @@ def _apply_grads(state: TrainState, grads, tx: ClipAdam, norm=None):
     # the learning rate multiplies *after* clip+Adam, so the plateau decay
     # needs no optimizer rebuild
     with torch.no_grad():
-        for name, p in state.params.items():
-            p.add_(-state.learning_rate * updates[name])
+        names = list(state.params)
+        torch._foreach_add_([state.params[k] for k in names],
+                            torch._foreach_mul([updates[k] for k in names],
+                                               -state.learning_rate))
     new_state = TrainState(
         params=state.params,
         opt_state=opt_state,
@@ -249,7 +255,7 @@ def _reduce_and_apply(state: TrainState, grads, tx: ClipAdam, model, mesh):
         return _apply_grads(state, grads, tx, _grad_norm(grads, model, mesh))
 
 
-def _make_update_fn(model: Wav2Letter, tx: ClipAdam, mesh: Mesh, loss_fn=None):
+def _make_update_fn(model: nn.Module, tx: ClipAdam, mesh: Mesh, loss_fn=None):
     grad_fn = _make_grad_fn(model, mesh, loss_fn)
 
     def update(state: TrainState, batch):
@@ -261,7 +267,7 @@ def _make_update_fn(model: Wav2Letter, tx: ClipAdam, mesh: Mesh, loss_fn=None):
 
 
 def make_train_step(
-    model: Wav2Letter, tx: ClipAdam, mesh: Mesh | None = None,
+    model: nn.Module, tx: ClipAdam, mesh: Mesh | None = None,
     loss_fn: Callable | None = None,
 ) -> Callable:
     """Returns (state, batch) -> (state, metrics); updates in place.
@@ -333,7 +339,7 @@ def init_grad_accum(params: dict[str, torch.Tensor]) -> dict:
 
 
 def make_train_step_acc(
-    model: Wav2Letter, tx: ClipAdam, accum_steps: int = 1, augment_fn=None,
+    model: nn.Module, tx: ClipAdam, accum_steps: int = 1, augment_fn=None,
     mesh: Mesh | None = None, loss_fn: Callable | None = None,
 ) -> Callable:
     """Accumulating train step: (state, acc, batch) -> (state, acc).

@@ -107,26 +107,27 @@ def make_param_summarizer(with_images: bool = False) -> Callable:
 
 
 def make_activation_summarizer(model) -> Callable:
-    """features -> ({tag: histogram stats}, {"logits": image}).
+    """(features, seq_lengths) -> ({tag: histogram stats}, {"logits": image}).
 
     Reruns the forward under ``no_grad`` on the summary batch with a
-    forward hook on each ``conv_i`` (whichever path conv_0 takes):
-    ``activations/conv_i`` histograms, the ``logits`` histogram and the
+    forward hook on each of ``model.layer_names`` (Wav2Letter's ``conv_i``,
+    whichever path conv_0 takes; the Conformer's front end and blocks):
+    ``activations/<layer>`` histograms, the ``logits`` histogram and the
     ``[C, T]`` logits image of the first row (``logits[0].T``). A
     tensor-parallel rank gathers the column-parallel layer's channels.
     """
 
-    def summarize(features: torch.Tensor):
+    def summarize(features: torch.Tensor, seq_lengths: torch.Tensor | None = None):
         outputs = {}
         hooks = [
-            getattr(model, name).register_forward_hook(
+            model.get_submodule(name).register_forward_hook(
                 lambda _m, _inp, out, name=name: outputs.__setitem__(name, out)
             )
             for name in model.layer_names
         ]
         try:
             with torch.no_grad():
-                logits = model(features)
+                logits = model(features, seq_lengths)
                 split = model.split
                 for name in model.layer_names:
                     if f"{name}.bias" in split.dims:  # a column-parallel shard

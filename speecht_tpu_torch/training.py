@@ -334,7 +334,7 @@ class Training(DatasetExecutor):
         if images:
             writer.add_images(global_step, images)
         if act_summarizer is not None:
-            ahists, aimages = act_summarizer(batch.features)
+            ahists, aimages = act_summarizer(batch.features, batch.seq_lengths)
             writer.add_raw_histograms(global_step, ahists)
             writer.add_images(global_step, aimages)
         writer.flush()

@@ -114,3 +114,25 @@ def test_counter_one_per_micro_step_none_in_eval(accum):
     batch = _batch(9)
     serving.make_infer_fn(model)(batch.features, batch.seq_lengths)
     assert conv_grad.input_grads == before
+
+
+def test_depthwise_conv_keeps_autograd_input_gradient():
+    """A grouped conv (the Conformer's depthwise width-32 one) is not
+    dense: it keeps autograd's input gradient and the counter stays,
+    while a dense layer of the same width still takes the forward form."""
+    gen = torch.Generator().manual_seed(32)
+    weight = torch.randn(6, 1, 32, generator=gen, requires_grad=True)
+    x = torch.randn(2, 6, 40, generator=gen, requires_grad=True)
+    assert not conv_grad.engages(weight, 1, groups=6)
+    before = conv_grad.input_grads
+    y = conv_grad.conv1d(x, weight, 1, (15, 16), groups=6)
+    dy = torch.randn(y.shape, generator=gen)
+    got = torch.autograd.grad(y, (x, weight), dy)
+    want_y = F.conv1d(F.pad(x, (15, 16)), weight, groups=6)
+    want = torch.autograd.grad(want_y, (x, weight), dy)
+    assert torch.equal(y, want_y)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    assert conv_grad.input_grads == before
+    wide = Wav2Letter(Wav2LetterConfig(input_size=39)).conv_8
+    assert wide.width == 32 and conv_grad.engages(wide.weight, wide.stride)

@@ -34,6 +34,7 @@ from speecht_tpu import corpus as jcorpus
 from speecht_tpu.cli import CLI as JaxCLI
 from speecht_tpu.data.reader import SpeechCorpusReader as JaxReader
 from test_beam import ARPA
+from test_torch_training import _pop_port_model_flags
 from speecht_tpu_torch import corpus
 from speecht_tpu_torch.cli import CLI
 from speecht_tpu_torch.data.reader import SpeechCorpusReader
@@ -279,6 +280,7 @@ def test_preprocess_and_from_audio_flags_match_jax():
     ours = vars(CLI(["evaluate", "--from-audio"]).parsed)
     theirs = vars(JaxCLI(["evaluate", "--from-audio"]).parsed)
     assert ours.pop("device") == "cuda" and ours["from_audio"]
+    _pop_port_model_flags(ours)
     ours.pop("lm"), theirs.pop("lm")
     assert ours == theirs
 

@@ -30,6 +30,7 @@ from speecht_tpu_torch.train.checkpoint import CheckpointManager
 from speecht_tpu_torch.train.state import create_train_state, make_optimizer
 from speecht_tpu_torch.weights import params_to_jax
 from test_beam import ARPA
+from test_torch_training import _pop_port_model_flags
 
 WIDTH_FLAGS = ["--base-channels", "16", "--wide-channels", "32"]
 # wide mutations, so that some candidates decode otherwise than others
@@ -142,6 +143,7 @@ def test_search_flags_and_defaults_match_jax():
     assert dataclasses.asdict(ours.lm) == dataclasses.asdict(theirs.lm)
     ours, theirs = vars(ours), vars(theirs)
     assert ours.pop("device") == "cuda"
+    _pop_port_model_flags(ours)
     ours.pop("lm"), theirs.pop("lm")
     assert ours == theirs
 

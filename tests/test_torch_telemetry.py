@@ -188,3 +188,40 @@ def test_stalls_are_the_wait_span_over_2_ms(log):
     # batches 1-3 each wait for a 50-ms read; the first batch is no stall
     assert loader.stall_count == 3
     assert loader.stall_seconds > 3 * 0.002
+
+
+def test_conformer_logs_its_module_spans_inside_the_forward(log):
+    from speecht_tpu_torch.models.conformer import Conformer, ConformerConfig
+
+    blocks, steps = 2, 3
+    model = Conformer(ConformerConfig(input_size=8, d_model=16, num_heads=2, ffn_dim=32,
+                                      num_blocks=blocks, conv_kernel=4,
+                                      subsampling_channels=4, dropout=0.0,
+                                      compute_dtype="float32"))
+    tx = tstate.make_optimizer()
+    state = tstate.create_train_state(dict(model.named_parameters()), tx, 1e-3)
+    step, acc = tstep.make_train_step_acc(model, tx), tstep.init_metrics_acc()
+    with _profiler():
+        for k in range(steps):
+            state, acc = step(state, acc, _batch(k))
+    spans = log.spans()
+    modules = [s for s in spans if s.name.startswith("conformer.")]
+    assert len(modules) == steps * telemetry.conformer_spans(blocks) == steps * (1 + 4 * blocks)
+    names = _names(modules)
+    assert names.count("conformer.subsample") == steps
+    assert names.count("conformer.ffn") == 2 * blocks * steps
+    assert names.count("conformer.mhsa") == names.count("conformer.conv") == blocks * steps
+    forwards = {s.id: s for s in spans if s.name == "step.forward"}
+    assert all(s.parent in forwards for s in modules)  # forward only, never nested
+    assert all(forwards[s.parent].start_ns <= s.start_ns <= s.end_ns <= forwards[s.parent].end_ns
+               for s in modules)
+
+
+def test_capacity_holds_twice_the_longest_traced_window():
+    """Conformer (L)'s 17 blocks log 69 module spans a step beside the 8
+    every step logs; the log keeps twice what the most steps a traced
+    window can hold log."""
+    per_step = telemetry.STEP_SPANS + telemetry.conformer_spans(17)
+    assert per_step == 8 + 69
+    assert telemetry.CAPACITY >= 2 * per_step * telemetry.TRACED_WINDOW_STEPS
+    assert telemetry.LOG._spans.maxlen == telemetry.CAPACITY

@@ -280,3 +280,32 @@ def test_clip_adam_update_matches_optax(scale):
         np.testing.assert_allclose(u["w"].numpy(), np.asarray(ju["w"]), rtol=1e-6)
         assert float(norm) == pytest.approx(float(np.linalg.norm(g)), rel=1e-6)
     np.testing.assert_allclose(opt.nu["w"].numpy(), np.asarray(jopt[1].nu["w"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 50.0])
+def test_clip_adam_list_ops_equal_the_per_leaf_formulas(max_norm):
+    """Two updates of seven leaves, clipped (0.5) and not (50): given the
+    global norm, the list ops give the per-leaf formulas' values bit for
+    bit."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(3,), (4, 5), (2, 3, 4), (1,), (6,), (7, 2), (3, 3)]
+    tx = tstate.make_optimizer(max_gradient_norm=max_norm, epsilon=1e-3)
+    state = tx.init({f"p{i}": torch.zeros(s) for i, s in enumerate(shapes)})
+    mu = {k: torch.zeros_like(v) for k, v in state.mu.items()}
+    nu = {k: torch.zeros_like(v) for k, v in state.nu.items()}
+    for step in (1, 2):
+        grads = {k: torch.randn(v.shape, generator=gen) for k, v in mu.items()}
+        updates, state, norm = tx.update(grads, state)
+        # the norm of the leaves' norms: the sum of squares to float32's rounding
+        want_norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values()))
+        assert float(norm) == pytest.approx(float(want_norm), rel=1e-6)
+        assert bool(norm < max_norm) == (max_norm > 1)
+        c = torch.tensor(float(step))
+        for k, g in grads.items():
+            g = torch.where(norm < max_norm, g, (g / norm) * max_norm)
+            mu[k] = (1 - 0.9) * g + 0.9 * mu[k]
+            nu[k] = (1 - 0.999) * (g * g) + 0.999 * nu[k]
+            want = (mu[k] / (1 - torch.pow(0.9, c))) / (
+                torch.sqrt(nu[k] / (1 - torch.pow(0.999, c))) + 1e-3)
+            assert torch.equal(updates[k], want), k
+            assert torch.equal(state.mu[k], mu[k]) and torch.equal(state.nu[k], nu[k]), k

@@ -56,3 +56,34 @@ def test_train_step_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert float(acc["updates"]) == 3.0
+
+
+@pytest.mark.cuda
+def test_clip_adam_list_ops_equal_the_per_leaf_formulas_on_the_card(cuda_device):
+    """Given the global norm, the list ops' kernels on the card give the
+    per-leaf ops' values bit for bit, clipped and not, over the kinds of
+    the Conformer's leaf shapes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = [(512,), (2048, 512), (512, 1, 32), (8, 64), (512, 512, 3, 3), (29,)]
+    for max_norm in (0.5, 1e4):
+        tx = tstate.make_optimizer(max_gradient_norm=max_norm, epsilon=1e-3)
+        state = tx.init({f"p{i}": torch.zeros(s, device=cuda_device)
+                         for i, s in enumerate(shapes)})
+        mu = {k: torch.zeros_like(v) for k, v in state.mu.items()}
+        nu = {k: torch.zeros_like(v) for k, v in state.nu.items()}
+        for step in (1, 2):
+            grads = {k: torch.randn(v.shape, generator=gen, device=cuda_device)
+                     for k, v in mu.items()}
+            updates, state, norm = tx.update(grads, state)
+            # the norm of the leaves' norms: the sum of squares to float32's rounding
+            want_norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values()))
+            assert float(norm) == pytest.approx(float(want_norm), rel=1e-6)
+            c = torch.tensor(float(step), device=cuda_device)
+            for k, g in grads.items():
+                g = torch.where(norm < max_norm, g, (g / norm) * max_norm)
+                mu[k] = (1 - 0.9) * g + 0.9 * mu[k]
+                nu[k] = (1 - 0.999) * (g * g) + 0.999 * nu[k]
+                want = (mu[k] / (1 - torch.pow(0.9, c))) / (
+                    torch.sqrt(nu[k] / (1 - torch.pow(0.999, c))) + 1e-3)
+                assert torch.equal(state.mu[k], mu[k]) and torch.equal(state.nu[k], nu[k]), k
+                assert torch.equal(updates[k], want), k

@@ -231,12 +231,24 @@ def test_profile_window_defaults_to_five_steps(tmp_path):
     assert os.listdir(tmp_path / "profile") == ["r_steps_3-8.pt.trace.json"]
 
 
+# the port's own flags choosing the network, which the JAX package (one
+# network) lacks, with their defaults: Wav2Letter, and Conformer (L)'s widths
+PORT_MODEL_FLAGS = {"model": "wav2letter", "d_model": 512, "num_heads": 8,
+                    "ffn_dim": 2048, "num_blocks": 17, "conv_kernel": 32,
+                    "subsampling_channels": 512, "dropout": 0.1}
+
+
+def _pop_port_model_flags(ours: dict) -> None:
+    assert {k: ours.pop(k) for k in PORT_MODEL_FLAGS} == PORT_MODEL_FLAGS
+
+
 def test_train_flags_and_defaults_match_jax():
     from speecht_tpu.cli import CLI as JaxCLI
 
     ours = vars(CLI(["train"]).parsed)
     theirs = vars(JaxCLI(["train"]).parsed)
     assert ours.pop("device") == "cuda"
+    _pop_port_model_flags(ours)
     theirs.pop("lm", None)
     assert ours == theirs
 
@@ -245,13 +257,16 @@ def test_train_flags_and_defaults_match_jax():
 def test_record_and_export_flags_and_defaults_match_jax(command):
     """Every flag of JAX's ``record`` and ``export`` with its default; the
     one default that differs is ``--export-platforms`` (torch devices,
-    ``cuda,cpu``, against JAX's ``tpu,cpu``). The port adds ``--device``
-    and, on ``record``, ``--reference-weights`` (as on ``evaluate``)."""
+    ``cuda,cpu``, against JAX's ``tpu,cpu``). The port adds ``--device``,
+    the network's flags (``--model``, which both commands refuse at
+    ``conformer``) and, on ``record``, ``--reference-weights`` (as on
+    ``evaluate``)."""
     from speecht_tpu.cli import CLI as JaxCLI
 
     ours = vars(CLI([command]).parsed)
     theirs = vars(JaxCLI([command]).parsed)
     assert ours.pop("device") == "cuda"
+    _pop_port_model_flags(ours)
     if command == "record":
         assert ours.pop("reference_weights") is None
         assert vars(ours.pop("lm")) == vars(theirs.pop("lm"))
@@ -268,6 +283,7 @@ def test_record_and_export_flags_and_defaults_match_jax(command):
     ours = vars(CLI(argv[command]).parsed)
     theirs = vars(JaxCLI(argv[command]).parsed)
     ours.pop("device"), ours.pop("reference_weights", None)
+    _pop_port_model_flags(ours)
     if command == "record":
         assert vars(ours.pop("lm")) == vars(theirs.pop("lm"))
     assert ours == theirs

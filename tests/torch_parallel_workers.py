@@ -338,3 +338,13 @@ def decode_runs(rank, world, work, argv_base, cases):
     out = {name: evaluate_recorded([*argv_base, *flags]) for name, flags in cases}
     with open(os.path.join(work, f"decode-{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def conformer_train(rank, world, work, argv):
+    """``train --model conformer`` on ``world`` data-parallel ranks through
+    the CLI (``argv`` holds the rest); each rank saves its parameters."""
+    from speecht_tpu_torch.cli import CLI
+
+    state = CLI([*argv, "--data-parallel", str(world)]).run()
+    np.savez(os.path.join(work, f"conformer-{rank}.npz"),
+             **{k: v.detach().numpy() for k, v in state.params.items()})
